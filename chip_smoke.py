@@ -3,12 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the shapes of the 1080p stress frame, renders a small
-frame on the GPU and on the CPU and compares them, then drives the main
-path — Renderer(Config(scene="stress", 1920x1080), device="cuda"), 8
-frames — and checks that every kernel of the path launched. Any failed
-check raises: the script then exits nonzero without its final line.
+Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
+parallel), holds each against its plain PyTorch version at the shapes of
+the 1080p stress frames, renders small frames on the GPU and on the CPU and
+compares them, then drives the two main paths — Renderer(Config(
+scene="stress", 1920x1080), device="cuda") with simple direct light, and
+the same with direct_mode="restir" (RTXDI + Denoise, whose passes run under
+torch.cuda.set_sync_debug_mode("error")), 8 frames each — and checks that
+every kernel of each path launched. Any failed check raises: the script
+then exits nonzero without its final line.
+
+Kernels: K1 tile raster (csrc/raster_resolve.cu), K2 ReSTIR candidates
+(csrc/restir_candidates.cu), K3 bvh16 walk (csrc/bvh16_walk.cu), K4 any hit
+(csrc/beam_any_hit.cu). Each one's bound (bound_ms) is the larger of its
+bytes (inputs read once, outputs written once; of the walks' node tables,
+K3 and K4, only the rows this run's rays read) over 3.35 TB/s and its fp32
+operations on this run's data over 67 TFLOP/s (H100 SXM data sheet). K2
+and K3 must equal their plain versions bit for bit, in every output.
 
 Output, in order: the card's name and power limit, versions, build time,
 one line per phase, the kernels JSON line, and last
@@ -28,6 +39,8 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 
 
 def log(msg):
@@ -48,6 +61,16 @@ def cuda_ms(fn, reps=5):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the byte and the operation time."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def capture_first_frame(Renderer, Config, rk, beamops):
@@ -85,9 +108,15 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from hobbyrenderer_tpu_torch import kernels
+    from hobbyrenderer_tpu_torch.config import Config
     from hobbyrenderer_tpu_torch.ops import beam as beamops
+    from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
     from hobbyrenderer_tpu_torch.ops import raster_kernel as rk
-    from hobbyrenderer_tpu_torch.renderer import Config, Renderer
+    from hobbyrenderer_tpu_torch.ops import restir_kernel as rko
+    from hobbyrenderer_tpu_torch.ops import sampling as smp
+    from hobbyrenderer_tpu_torch.profile_frame import median_ms, time_passes
+    from hobbyrenderer_tpu_torch.renderer import Renderer
+    counters = {"K1": rk, "K2": rko, "K3": b16ops, "K4": beamops}
 
     # ---- phase 1: card, versions, kernel build ------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -135,34 +164,40 @@ def main():
     assert vis_mis < 1e-3 * n_pix, vis_mis
     assert attr_err <= 1e-4, attr_err
     assert int((v >= 0).sum()) > n_pix // 2, "first frame drew too little"
+    # loop 1: 3 planes x (2 mul + 2 add) + l1+l2 per (pixel, triangle) of each
+    # worklist item; loop 2: 16 planes x 4 + 1 div + 11 mul per drawn pixel
+    n_items = int((work_slot >= 0).sum())
+    k1_bound = bound(nbytes(records, work_tile, work_slot, d, v, a),
+                     n_items * 1024 * 32 * 13 + int((v >= 0).sum()) * 76)
 
-    # ---- phase 3: K4 against its plain version (sample of tiles) -----------
+    # ---- phase 3: K4 against its plain version (all tiles) -----------------
     btable, rays = seen["k4"]
     T = rays.shape[0]
     occ, ovf = beamops.beam_any_hit_tiles(btable, rays)
-    act_tiles = torch.nonzero((rays[:, 7] > 0.5).any(1)).flatten()
-    n_s = min(64, act_tiles.numel())
-    sel = act_tiles[torch.linspace(0, act_tiles.numel() - 1, n_s).round().long()]
-    rays_s = rays[sel].contiguous()
-    ref_s, _ = beamops.beam_any_hit_tiles_reference(btable, rays_s)
-    occ_s, _ = beamops.beam_any_hit_tiles(btable, rays_s)
+    ref4, _ = beamops.beam_any_hit_tiles_reference(btable, rays)
     torch.cuda.synchronize()
-    act_s = rays_s[:, 7] > 0.5
-    n_act = int(act_s.sum())
-    k4_mis = int(((occ_s != ref_s) & act_s).sum())
-    k4_all_ms = cuda_ms(lambda: beamops.beam_any_hit_tiles(btable, rays))
-    k4_ms = cuda_ms(lambda: beamops.beam_any_hit_tiles(btable, rays_s))
-    k4_plain_ms = cuda_ms(lambda: beamops.beam_any_hit_tiles_reference(btable, rays_s),
-                          reps=5)
-    log(f"phase3 K4 rays={tuple(rays.shape)} btable={tuple(btable.shape)}: sample "
-        f"{n_s} tiles, occlusion mismatch={k4_mis}/{n_act} active, occluded share "
-        f"{float(ref_s[act_s].mean()):.3f}, ovf nonzero={int((ovf != 0).sum())}; kernel "
-        f"all {T} tiles {k4_all_ms:.3f} ms, sample {k4_ms:.3f} ms, plain sample "
-        f"{k4_plain_ms:.3f} ms")
+    act = rays[:, 7] > 0.5
+    n_act = int(act.sum())
+    k4_mis = int(((occ != ref4) & act).sum())
+    k4_err = float((occ - ref4)[act].abs().max())
+    k4_ms = cuda_ms(lambda: beamops.beam_any_hit_tiles(btable, rays))
+    k4_plain_ms = cuda_ms(lambda: beamops.beam_any_hit_tiles_reference(btable, rays), reps=3)
+    # bytes: the table rows the kernel's walk reads (its walk replayed as a
+    # plain wavefront), the rays and the outputs; operations: at least the
+    # root row's 4 child slab tests (27 fp32 ops each) per ray
+    walk4, rows4 = beamops.beam_walk_rows(btable, rays)
+    walk4_mis = int((walk4 != occ).sum())
+    n_rows4 = int(rows4.sum())
+    k4_bound = bound(n_rows4 * btable.shape[1] * 4 + nbytes(rays, occ, ovf), n_act * 4 * 27)
+    log(f"phase3 K4 rays={tuple(rays.shape)} btable={tuple(btable.shape)}: occlusion "
+        f"mismatch={k4_mis}/{n_act} active, occluded share {float(ref4[act].mean()):.3f}, "
+        f"ovf nonzero={int((ovf != 0).sum())}, walk replay mismatch={walk4_mis}, rows read "
+        f"{n_rows4} of {btable.shape[0]}; kernel {k4_ms:.3f} ms, plain "
+        f"{k4_plain_ms:.3f} ms, bound {k4_bound[0]:.4f} ms ({k4_bound[1]})")
     assert n_act > 0
     assert k4_mis <= 1e-4 * n_act, k4_mis
+    assert walk4_mis == 0, walk4_mis
     assert int((ovf != 0).sum()) == 0
-    assert bool(torch.equal(occ[sel], occ_s))
 
     # ---- phase 4: the port's frame, CUDA (kernels) against CPU (plain) -----
     cfg = Config(scene="stress:4", width=256, height=192,
@@ -182,7 +217,7 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
     assert within >= 0.99, within
 
-    # ---- phase 5: the main path ---------------------------------------------
+    # ---- phase 5: the simple-direct main path ------------------------------
     t0 = time.perf_counter()
     r = Renderer(Config(scene="stress", width=1920, height=1080,
                         cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_main")),
@@ -190,15 +225,15 @@ def main():
     setup_s = time.perf_counter() - t0
     r._model.keep = ("gbuffer", "hdr")
     n_frames = 8
-    rk.launches = 0
-    beamops.launches = 0
+    for m in counters.values():
+        m.launches = 0
     frame_ms = []
     for _ in range(n_frames):
         f0 = time.perf_counter()
         r.render_frame()
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - f0) * 1e3)
-    launches = {"K1": rk.launches, "K4": beamops.launches}
+    launches = {k: m.launches for k, m in counters.items()}
     ldr = r.last_frame
     gb = r._model.last_resources["gbuffer"]
     hdr = r._model.last_resources["hdr"]
@@ -208,33 +243,219 @@ def main():
     r.shutdown()
     valid = float(gb.valid.float().mean())
     ms_med = statistics.median(frame_ms[1:])
-    log(f"phase5 main path stress 1920x1080 x{n_frames}: setup {setup_s:.1f} s "
-        f"(BVH+beam table {r.bvh_seconds:.1f} s), frame ms {[round(x, 2) for x in frame_ms]}, "
-        f"median frames 2-{n_frames} {ms_med:.2f} ms, launches {launches}, "
-        f"gbuffer valid {valid:.3f}, stats {json.dumps(stats)}, png {png}")
+    log(f"phase5 simple main path stress 1920x1080 x{n_frames}: setup {setup_s:.1f} s "
+        f"(BVH+beam table {r.bvh_seconds:.1f} s), frame ms "
+        f"{[round(x, 2) for x in frame_ms]}, median frames 2-{n_frames} {ms_med:.2f} ms, "
+        f"launches {launches}, gbuffer valid {valid:.3f}, stats {json.dumps(stats)}, png {png}")
     assert tuple(ldr.shape) == (1080, 1920, 3) and ldr.dtype == torch.uint8
     assert bool(torch.isfinite(hdr).all()), "non-finite HDR"
     assert valid > 0.5, valid
     assert launches["K1"] >= 3 * n_frames, launches
     assert launches["K4"] >= n_frames, launches
+    assert launches["K2"] == 0 and launches["K3"] == 0, launches
     assert stats["rt_overflow_tiles"] == 0
+    del r, gb, hdr, ldr
+
+    # ---- capture the first 1080p stress restir frame's K2 / K3 inputs ------
+    t0 = time.perf_counter()
+    cap = {"k3": []}
+    k2_orig, k3_orig = rko.restir_candidates, b16ops.bvh16_walk
+
+    def k2_spy(*a, **kw):
+        cap.setdefault("k2", (a, kw))
+        return k2_orig(*a, **kw)
+
+    def k3_spy(table, o, d, t_max, any_hit, max_steps, t_min=1e-4):
+        cap["k3"].append((table, o, d, t_max, any_hit, max_steps, t_min))
+        return k3_orig(table, o, d, t_max, any_hit, max_steps, t_min)
+
+    rko.restir_candidates, b16ops.bvh16_walk = k2_spy, k3_spy
+    try:
+        rr = Renderer(Config(scene="stress", width=1920, height=1080, direct_mode="restir",
+                             cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_rx")),
+                      device="cuda")
+        rr._model.keep = ("gbuffer",)
+        rr.render_frame()
+        torch.cuda.synchronize()
+        gb = rr._model.last_resources["gbuffer"]
+        table16 = rr._model.rt.bvh16.table
+        rr.shutdown()
+    finally:
+        rko.restir_candidates, b16ops.bvh16_walk = k2_orig, k3_orig
+    assert "k2" in cap and cap["k3"], "the first restir frame did not reach K2 and K3"
+    log(f"captured first 1080p stress restir frame in {time.perf_counter() - t0:.1f} s "
+        f"(K3 calls: {[tuple(c[1].shape) for c in cap['k3']]})")
+
+    # ---- phase 6: K2 against its plain version ------------------------------
+    a, kw = cap["k2"]
+    got = rko.restir_candidates(*a, **kw)
+    ref = rko.restir_candidates_reference(*a, **kw)
+    torch.cuda.synchronize()
+    flat3, tsel, planes = a[0], a[1], a[2]
+    y_same = got[0] == ref[0]
+    id_share = float(y_same.float().mean())
+    w_rel = float(((got[3] - ref[3]).abs() / ref[3].abs().clamp(min=1e-30))[y_same].max())
+    k2_err = max(float((g - r_).abs().max()) for g, r_ in zip(got, ref))   # y/u/v/w_sum/row
+    k2_ms = cuda_ms(lambda: rko.restir_candidates(*a, **kw))
+    k2_plain_ms = cuda_ms(lambda: rko.restir_candidates_reference(*a, **kw), reps=3)
+    Hp, Wp = planes.shape[1:]
+    n_cand = kw["num_candidates"]
+    # per pixel ~40 fp32 ops of set-up, per candidate 189 (light 34 + emissive
+    # 57 + GGX p-hat 92 + RIS 3 + uniforms 3), counted from the kernel source
+    k2_bound = bound(nbytes(flat3, tsel, planes, a[3], *got), Hp * Wp * (40 + 189 * n_cand))
+    drawn = float((ref[0] >= 0).float().mean())
+    log(f"phase6 K2 planes={tuple(planes.shape)} tiles={tuple(flat3.shape)} "
+        f"candidates={n_cand}: id agreement {id_share:.6f}, w_sum max rel err {w_rel:.3g} "
+        f"where ids agree, max|d| all outputs {k2_err:.3g}, pixels with a winner {drawn:.3f}; "
+        f"kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms "
+        f"({k2_bound[1]})")
+    assert id_share >= 0.999, id_share
+    assert w_rel <= 1e-5, w_rel
+    assert k2_err == 0.0, "K2 is not bit-exact with its plain version"
+    assert drawn > 0.3, drawn
+
+    # ---- phase 7: K3 against its plain version ------------------------------
+    # the captured any-hit walks (stragglers, reduced-rate mismatches) and 64k
+    # closest-hit rays from G-buffer points, cosine-distributed about the normal
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    vpix = torch.nonzero(gb.valid.reshape(-1)).flatten()
+    pick = vpix[torch.linspace(0, vpix.numel() - 1, 65536, device="cuda").round().long()]
+    n_ = gb.normal.reshape(-1, 3)[pick]
+    o_ = gb.world_pos.reshape(-1, 3)[pick] + gb.geo_normal.reshape(-1, 3)[pick] * 0.05
+    u1 = torch.rand(65536, device="cuda", generator=gen)
+    u2 = torch.rand(65536, device="cuda", generator=gen)
+    local = torch.stack([torch.sqrt(u1) * torch.cos(6.283185307 * u2),
+                         torch.sqrt(u1) * torch.sin(6.283185307 * u2),
+                         torch.sqrt(1.0 - u1)], -1)
+    d_ = smp.to_world(n_, local).contiguous()
+    tmax_ = torch.full((65536,), b16ops.INF, device="cuda")
+    walks = [(f"any[{i}]", c) for i, c in enumerate(cap["k3"])]
+    walks.append(("closest64k", (table16, o_.contiguous(), d_, tmax_, False,
+                                 b16ops.UNCAPPED_STEPS, 1e-4)))
+    k3_rows = []
+    for name, (tab, o, d, tm, any_hit, steps, t_min) in walks:
+        bt, btri, bs = b16ops.bvh16_walk(tab, o, d, tm, any_hit, steps, t_min)
+        pt, ptri, ps, rows = b16ops.bvh16_walk_reference(tab, o, d, tm, any_hit, steps, t_min,
+                                                         return_visited=True)
+        torch.cuda.synchronize()
+        tri_mis = int((btri != ptri).sum())
+        t_mis = int((bt != pt).sum())
+        step_mis = int((bs != ps).sum())
+        hit = ptri >= 0
+        occ_mis = int((((btri >= 0) & (bt < tm)) != (hit & (pt < tm))).sum())
+        capped = float(((ps >= steps) & ~hit).float().mean())
+        ms = cuda_ms(lambda: b16ops.bvh16_walk(tab, o, d, tm, any_hit, steps, t_min))
+        pms = cuda_ms(lambda: b16ops.bvh16_walk_reference(tab, o, d, tm, any_hit, steps, t_min),
+                      reps=3)
+        # bytes: the rows the walk reads (the plain walk reads the same), the
+        # rays and the outputs; >= 432 fp32 ops per step (16 slab tests of 27)
+        n_rows = int(rows.sum())
+        bnd = bound(n_rows * tab.shape[1] * 4 + nbytes(o, d, tm, bt, btri, bs),
+                    int(ps.sum()) * 432)
+        k3_rows.append(dict(name=name, rays=o.shape[0], ms=ms, plain_ms=pms, bound=bnd,
+                            err=float((bt - pt).abs().max())))
+        log(f"phase7 K3 {name} rays={o.shape[0]} any_hit={any_hit} max_steps={steps}: "
+            f"tri mismatch {tri_mis}, t mismatch {t_mis}, occlusion mismatch {occ_mis}, "
+            f"steps mismatch {step_mis}, hit share {float(hit.float().mean()):.3f}, capped "
+            f"share {capped:.4f}, mean steps {float(ps.float().mean()):.2f}, rows read "
+            f"{n_rows} of {tab.shape[0]}; kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
+        assert tri_mis == 0 and t_mis == 0 and step_mis == 0 and occ_mis == 0, \
+            f"K3 {name} is not bit-exact with its plain version"
+    k3_main = max(k3_rows, key=lambda x: x["rays"] if x["name"] != "closest64k" else -1)
+    del gb
+
+    # ---- phase 8: the restir frame, CUDA (kernels) against CPU (plain) -----
+    cfg = Config(scene="stress:4", width=256, height=192, direct_mode="restir",
+                 cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke4rx"))
+    t0 = time.perf_counter()
+    rg = Renderer(cfg, device="cuda")
+    rc = Renderer(cfg, device="cpu")
+    for _ in range(3):
+        lg = rg.render_frame().cpu().numpy()
+        lc = rc.render_frame().numpy()
+    sg, sc_ = rg.stats(), rc.stats()
+    rg.shutdown()
+    rc.shutdown()
+    diff = np.abs(lg.astype(np.int32) - lc.astype(np.int32)).max(-1)
+    within = float(np.mean(diff <= 2))
+    log(f"phase8 restir stress:4 256x192 x3 frames cuda vs cpu: {within * 100:.3f}% of LDR "
+        f"pixels within 2/255, mean |d| {float(diff.mean()):.4f}, max {int(diff.max())}; "
+        f"stats cuda {json.dumps(sg)} cpu {json.dumps(sc_)} ({time.perf_counter() - t0:.1f} s)")
+    assert within >= 0.97, within
+
+    # ---- phase 9: the restir main path ---------------------------------------
+    t0 = time.perf_counter()
+    r = Renderer(Config(scene="stress", width=1920, height=1080, direct_mode="restir",
+                        cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_rx_main")),
+                 device="cuda")
+    setup_rx = time.perf_counter() - t0
+    r._model.keep = ("gbuffer", "hdr")
+    # per-pass CUDA events; a host sync inside RTXDI or Denoise raises
+    events = time_passes(r.graph, strict=("RTXDI", "Denoise"))
+    for m in counters.values():
+        m.launches = 0
+    frame_rx, stats_rx = [], []
+    for _ in range(n_frames):
+        f0 = time.perf_counter()
+        r.render_frame()
+        torch.cuda.synchronize()
+        frame_rx.append((time.perf_counter() - f0) * 1e3)
+        stats_rx.append(r.stats())
+    launches_rx = {k: m.launches for k, m in counters.items()}
+    ldr = r.last_frame
+    gb = r._model.last_resources["gbuffer"]
+    hdr = r._model.last_resources["hdr"]
+    png_rx = os.path.join(tempfile.gettempdir(), "chip_smoke_stress_restir_1080p.png")
+    r.save_screenshot(png_rx)
+    passes = [p.name for p in r.graph.passes if p.enabled]
+    r.shutdown()
+    pass_ms = {k: median_ms(v) for k, v in events.items()}
+    rx_med = statistics.median(frame_rx[1:])
+    lanes = sum(s_["rt_k3_lanes_di"] for s_ in stats_rx)
+    capped = sum(s_["rt_k3_capped_di"] for s_ in stats_rx)
+    log(f"phase9 restir main path stress 1920x1080 x{n_frames}: setup {setup_rx:.1f} s "
+        f"(BVH+beam table+bvh16+light pool {r.bvh_seconds:.1f} s), "
+        f"passes {passes}, frame ms {[round(x, 2) for x in frame_rx]}, median frames "
+        f"2-{n_frames} {rx_med:.2f} ms, launches {launches_rx}, rt_overflow_di per frame "
+        f"{[s_['rt_overflow_di'] for s_ in stats_rx]}, K3 lanes {lanes}, capped {capped} "
+        f"(share {capped / max(lanes, 1):.4f}), gbuffer valid "
+        f"{float(gb.valid.float().mean()):.3f}, png {png_rx}")
+    log(f"phase9 per-pass stream ms (CUDA events, median of frames 2-{n_frames}): "
+        f"{json.dumps(pass_ms)}")
+    assert tuple(ldr.shape) == (1080, 1920, 3) and ldr.dtype == torch.uint8
+    assert bool(torch.isfinite(hdr).all()), "non-finite HDR"
+    assert "RTXDI" in passes and "Denoise" in passes and "SunShadow" not in passes, passes
+    assert launches_rx["K1"] >= 3 * n_frames, launches_rx
+    assert launches_rx["K2"] >= n_frames and launches_rx["K3"] >= n_frames, launches_rx
+    assert launches_rx["K4"] >= 2 * n_frames, launches_rx
 
     jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not jax_mods, f"the port loaded jax: {jax_mods[:5]}"
+    ref_mods = sorted(m for m in sys.modules
+                      if m == "hobbyrenderer_tpu" or m.startswith("hobbyrenderer_tpu."))
+    assert not ref_mods, f"the port loaded the JAX package: {ref_mods[:5]}"
+
+    def entry(name, source, replaces, key, err, ms, plain_ms, bnd, **extra):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches_rx[key], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                    launches_simple_path=launches[key], **extra)
 
     kernels_line = {"kernels": [
-        {"name": "raster_resolve_tiles", "route": "cuda",
-         "source": "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
-         "replaces": "hobbyrenderer_tpu/ops/raster_pallas.py:212",
-         "launches": launches["K1"], "max_abs_err": max(depth_err, attr_err),
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "beam_any_hit_tiles", "route": "cuda",
-         "source": "hobbyrenderer_tpu_torch/csrc/beam_any_hit.cu",
-         "replaces": "hobbyrenderer_tpu/ops/beam.py:68",
-         "launches": launches["K4"], "max_abs_err": float(
-             (occ_s - ref_s)[act_s].abs().max()),
-         "ms": k4_ms, "plain_ms": k4_plain_ms, "ms_all_tiles": k4_all_ms,
-         "sample_tiles": n_s}]}
+        entry("raster_resolve_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
+              "hobbyrenderer_tpu/ops/raster_pallas.py:212", "K1", max(depth_err, attr_err),
+              k1_ms, k1_plain_ms, k1_bound),
+        entry("restir_candidates", "hobbyrenderer_tpu_torch/csrc/restir_candidates.cu",
+              "hobbyrenderer_tpu/ops/restir_pallas.py:65", "K2", k2_err, k2_ms, k2_plain_ms,
+              k2_bound),
+        entry("bvh16_walk", "hobbyrenderer_tpu_torch/csrc/bvh16_walk.cu",
+              "hobbyrenderer_tpu/ops/wtrace.py:71", "K3", k3_main["err"], k3_main["ms"],
+              k3_main["plain_ms"], k3_main["bound"], rays=k3_main["rays"],
+              walks={x["name"]: [x["rays"], x["ms"], x["plain_ms"], x["bound"][0]]
+                     for x in k3_rows}),
+        entry("beam_any_hit_tiles", "hobbyrenderer_tpu_torch/csrc/beam_any_hit.cu",
+              "hobbyrenderer_tpu/ops/beam.py:68", "K4", k4_err, k4_ms, k4_plain_ms, k4_bound)]}
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,17 @@
 """hobbyrenderer_tpu_torch — the PyTorch + CUDA port of hobbyrenderer_tpu.
 
 The JAX package (``hobbyrenderer_tpu``) stays the reference. This package runs
-the default Normal-mode deferred frame (simple direct lighting, no indirect
-mode, TAA and two-phase occlusion culling on) with PyTorch on an explicit
-device; its two TPU kernels on that path are hand-written CUDA C++ for Hopper
-(``csrc/``), each beside a plain PyTorch version that runs on CPU tensors.
+the Normal-mode deferred frame (simple direct lighting or ReSTIR DI with
+denoising, no indirect mode, TAA and two-phase occlusion culling on) with
+PyTorch on an explicit device; the TPU kernels on that path are hand-written
+CUDA C++ for Hopper (``csrc/``), each beside a plain PyTorch version that
+runs on CPU tensors.
 
-Host-side modules that never import jax are reused from the JAX package:
-``config``, ``scene.{scene,cooker,procedural,camera,camera_state,loader,
-textures,cache}``, ``utils.{math,image,timing}`` and ``native``.
+The port keeps its own copies of the host modules it needs and imports
+nothing of the JAX package: ``config``, ``scene.{scene,cooker,procedural,
+camera,camera_state,loader,cache,textures,bc6h}``, ``utils.{math,image,
+timing}`` and ``native`` (numpy, byte-for-byte the JAX package's behaviour;
+``Config.as_pytree`` returns a plain dict).
 
 Layout mirrors the JAX package: ``scene/gpu.py``, ``graph/rendergraph.py``,
 ``ops/*.py``, ``models/deferred.py``, ``renderer.py``, ``__main__.py``.

@@ -5,6 +5,8 @@ Usage:
         --screenshot out.png --timings            # on the GPU (default)
     python -m hobbyrenderer_tpu_torch --scene cube --width 128 --height 96 \
         --device cpu                              # plain PyTorch versions
+    python -m hobbyrenderer_tpu_torch --scene stress --frames 8 \
+        --direct-mode restir                      # ReSTIR DI + RELAX
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import argparse
 import json
 import sys
 
-from hobbyrenderer_tpu.config import Config, RenderingMode
+from hobbyrenderer_tpu_torch.config import Config, RenderingMode
 
 
 def main(argv=None):
@@ -29,6 +31,15 @@ def main(argv=None):
     p.add_argument("--cache-dir", type=str, default=".hr_cache")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--shadow-scale", type=int, default=2)
+    p.add_argument("--direct-mode", type=str, default="simple",
+                   choices=("simple", "restir"))
+    p.add_argument("--indirect-mode", type=str, default="none",
+                   help="only 'none' is ported; others raise NotImplementedError")
+    p.add_argument("--restir-quality", default="balanced",
+                   choices=("highperf", "balanced", "highquality"))
+    p.add_argument("--denoiser", type=str, default="relax", choices=("relax", "reblur"))
+    p.add_argument("--regir", action="store_true",
+                   help="not ported yet (raises NotImplementedError)")
     p.add_argument("--describe-graph", action="store_true")
     p.add_argument("--timings", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
@@ -36,6 +47,8 @@ def main(argv=None):
     a = p.parse_args(argv)
     cfg = Config(scene=a.scene, width=a.width, height=a.height, mode=a.mode,
                  cache_dir=a.cache_dir, seed=a.seed, shadow_scale=a.shadow_scale,
+                 direct_mode=a.direct_mode, indirect_mode=a.indirect_mode,
+                 restir_quality=a.restir_quality, denoiser=a.denoiser, regir=a.regir,
                  keep_hdr=bool(a.screenshot and a.screenshot.lower().endswith(".hdr")))
     from hobbyrenderer_tpu_torch.renderer import Renderer
     r = Renderer(cfg, device=a.device)

@@ -1,10 +1,15 @@
 """Build and bind the package's hand-written CUDA kernels (csrc/*.cu).
 
-The sources have a plain C interface. At first use they are compiled with
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into one shared
-library under ``hobbyrenderer_tpu_torch/build/`` (named by a hash of the
-sources, so an edit rebuilds) and loaded with ctypes. Every C entry point
+The sources have a plain C interface. At first use each is compiled by its
+own ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false`` (all at
+once) and the objects are linked into one shared library under
+``hobbyrenderer_tpu_torch/build/`` (named by a hash of the sources, so an
+edit rebuilds) and loaded with ctypes. Every C entry point
 launches on the stream it is given and returns ``cudaGetLastError()``.
+
+``-fmad=false``: no product is contracted into a sum. The plain PyTorch
+versions round every product and sum as a separate op, and the kernels keep
+their order of operations, so kernel and plain version agree bit for bit.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no CUDA toolkit."""
@@ -22,19 +27,26 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-SOURCES = ("raster_resolve.cu", "beam_any_hit.cu")
+SOURCES = ("raster_resolve.cu", "beam_any_hit.cu", "restir_candidates.cu",
+           "bvh16_walk.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
 _lib = None
 build_seconds = None     # wall time of the build in this process (None = cached)
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # records, tile_start, work_slot, depth, visid, attrs, T, tx, stream
     "hr_raster_resolve_tiles": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP),
     # rays, table, occ, ovf, T, N, stream
     "hr_beam_any_hit_tiles": (_VP, _VP, _VP, _VP, _I, _I, _VP),
+    # flat3, tsel, planes, cam, y, u, v, w_sum, row, Hp, Wp, T, N, frame, y0,
+    # w_log, stream
+    "hr_restir_candidates": (_VP,) * 9 + (_I,) * 7 + (_VP,),
+    # table, o, d, tmax, best_t, best_tri, steps, R, I, M, any_hit,
+    # max_steps, t_min, stream
+    "hr_bvh16_walk": (_VP,) * 7 + (_I,) * 5 + (_F, _VP),
 }
 
 
@@ -47,7 +59,8 @@ def _nvcc() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernel library: one nvcc
+    per source, all started together, then one link."""
     global _lib, build_seconds
     if _lib is not None:
         return _lib
@@ -60,16 +73,30 @@ def library() -> ctypes.CDLL:
     so = os.path.join(BUILD_DIR, f"libhrkernels_{h.hexdigest()[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = so + f".{os.getpid()}.tmp"
+        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        objs = [os.path.join(BUILD_DIR, f"{os.path.splitext(s)[0]}_{tag}.o") for s in SOURCES]
         t0 = time.perf_counter()
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *paths]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        nvcc = _nvcc()
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-Xptxas", "-v", "-o", obj, src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(paths, objs)]
+        logs = []
+        for src, pr in zip(SOURCES, procs):
+            out, err = pr.communicate()
+            if pr.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({pr.returncode}):\n{err}")
+            logs.append(f"== {src}\n{err}")
+        tmp = so + f".{os.getpid()}.tmp"
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
         os.replace(tmp, so)
+        for obj in objs:
+            os.remove(obj)
         build_seconds = time.perf_counter() - t0
         with open(so + ".ptxas.txt", "w") as f:
-            f.write(res.stderr)
+            f.write("".join(logs))
     lib = ctypes.CDLL(so)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,13 +1,20 @@
-"""Deferred rendering, Normal mode with simple direct lighting and no
-indirect mode — the default frame (counterpart of
-hobbyrenderer_tpu/models/deferred.py, the 15 passes that config runs):
+"""Deferred rendering, Normal mode with no indirect mode (counterpart of
+hobbyrenderer_tpu/models/deferred.py). With simple direct lighting (the
+default) the frame runs 15 passes:
 
 Culling -> Raster -> HZBBuild -> RasterPhase2 -> ResolveGBuffer ->
 MaskedLayer -> SunShadow -> IBL -> DeferredLighting -> Sky -> Transparent ->
 TAA -> AutoExposure -> Bloom -> Tonemap.
 
-Raster passes go through the tile-raster kernel (ops/raster_kernel.py) and
-SunShadow through the any-hit kernel (ops/beam.py)."""
+With ``direct_mode="restir"`` SunShadow is off and RTXDI + Denoise run after
+IBL (16 passes): ReSTIR DI (ops/restir.py) feeds DeferredLighting's direct
+term through the RELAX/REBLUR denoiser (ops/denoise.py).
+
+Raster passes go through the tile-raster kernel (ops/raster_kernel.py),
+SunShadow and the RTXDI winner rays through the any-hit kernel
+(ops/beam.py), RTXDI's candidates through the candidate kernel
+(ops/restir_kernel.py) and its straggler rays through the bvh16 walk
+(ops/bvh16.py)."""
 
 from __future__ import annotations
 
@@ -16,20 +23,23 @@ from typing import Dict
 import numpy as np
 import torch
 
-from hobbyrenderer_tpu.scene.cooker import MESHLET_MAX_TRIS
+from hobbyrenderer_tpu_torch.scene.cooker import MESHLET_MAX_TRIS
 from hobbyrenderer_tpu_torch.graph.rendergraph import FrameContext, RenderGraph, render_pass
 from hobbyrenderer_tpu_torch.ops import beam as beamops
 from hobbyrenderer_tpu_torch.ops import culling as cullops
+from hobbyrenderer_tpu_torch.ops import denoise as dnops
 from hobbyrenderer_tpu_torch.ops import hzb as hzbops
 from hobbyrenderer_tpu_torch.ops import ibl as iblops
 from hobbyrenderer_tpu_torch.ops import post as postops
 from hobbyrenderer_tpu_torch.ops import raster as rasterops
+from hobbyrenderer_tpu_torch.ops import restir as restirops
 from hobbyrenderer_tpu_torch.ops import sampling as smp
 from hobbyrenderer_tpu_torch.ops import shading as shadeops
 from hobbyrenderer_tpu_torch.ops import sky as skyops
 from hobbyrenderer_tpu_torch.ops import taa as taaops
 from hobbyrenderer_tpu_torch.ops import transparent as transops
 from hobbyrenderer_tpu_torch.ops.resize import resize_bilinear
+from hobbyrenderer_tpu_torch.ops.restir_presets import get_preset
 from hobbyrenderer_tpu_torch.utils.rng import pcg3d, uniform_from_bits
 
 
@@ -46,8 +56,12 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
                          has_masked: bool = True, has_transparent: bool = True,
                          masked_capacity: int = None,
                          transparent_capacity: int = None,
-                         shadow_scale: int = 2) -> RenderGraph:
+                         shadow_scale: int = 2, direct_mode: str = "simple",
+                         restir_quality: str = "balanced",
+                         denoiser_profile: str = "relax") -> RenderGraph:
     g = RenderGraph()
+    use_restir = direct_mode == "restir"
+    rq = get_preset(restir_quality)
     masked_capacity = max(masked_capacity or visible_capacity, 1)
     transparent_capacity = max(transparent_capacity or visible_capacity, 1)
     h0, w0, hzb_levels = hzbops.hzb_sizes(width, height)
@@ -188,6 +202,9 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
             vis = resize_bilinear(vis, height, width)
         res["sun_shadow"] = vis
 
+    if use_restir:
+        g.get("SunShadow").enabled = False
+
     @g.add
     @render_pass("IBL", reads=(), writes=("sky_irradiance",))
     def _ibl(ctx, res):
@@ -196,21 +213,61 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
                                                             ctx.settings)
 
     @g.add
-    @render_pass("DeferredLighting", reads=("gbuffer", "sun_shadow", "sky_irradiance"),
+    @render_pass("RTXDI", reads=("gbuffer", "restir_reservoir"),
+                 writes=("restir_direct", "restir_reservoir", "rt_overflow_di",
+                         "rt_k3_lanes_di", "rt_k3_capped_di"),
+                 persistent=("restir_reservoir",))
+    def _rtxdi(ctx, res):
+        """ReSTIR DI chain: candidates, temporal and spatial reuse, one
+        visibility ray per winner."""
+        so = {}
+        direct, new_res = restirops.restir_di(
+            ctx.gpu, ctx.rt, res["gbuffer"], ctx.vc, ctx.settings,
+            res["restir_reservoir"], ctx.vc["frame_index"], visibility=True,
+            stats_out=so, num_candidates=rq.di_candidates,
+            spatial_taps=rq.di_spatial_taps, boiling_mult=rq.di_boiling_mult,
+            checkerboard=rq.di_checkerboard, vis_scale=rq.di_vis_scale)
+        res["restir_direct"] = direct
+        res["restir_reservoir"] = new_res
+        res["rt_overflow_di"] = so["overflow"]
+        res["rt_k3_lanes_di"] = so["k3_lanes"]
+        res["rt_k3_capped_di"] = so["k3_capped"]
+
+    @g.add
+    @render_pass("Denoise", reads=("restir_direct", "gbuffer", "denoise_state"),
+                 writes=("restir_direct", "denoise_state"), persistent=("denoise_state",))
+    def _denoise(ctx, res):
+        """RELAX / REBLUR denoise of the stochastic direct signal."""
+        out, st = dnops.denoise(res["restir_direct"], res["gbuffer"], res["denoise_state"],
+                                profile=denoiser_profile)
+        res["restir_direct"] = out
+        res["denoise_state"] = st
+
+    if not use_restir:
+        g.get("RTXDI").enabled = False
+        g.get("Denoise").enabled = False
+
+    @g.add
+    @render_pass("DeferredLighting",
+                 reads=("gbuffer", "sky_irradiance")
+                 + (("restir_direct",) if use_restir else ("sun_shadow",)),
                  writes=("hdr",))
     def _deferred(ctx, res):
         gb = res["gbuffer"]
         v = -skyops.view_dirs_from_pixels(ctx.vc, height, width)
         rough = gb.orm[..., 1]
         metal = gb.orm[..., 2]
-        mask = res["sun_shadow"]
-        sun_idx = ctx.gpu.meta["sun_index"]
+        if use_restir:
+            direct = res["restir_direct"]
+        else:
+            mask = res["sun_shadow"]
+            sun_idx = ctx.gpu.meta["sun_index"]
 
-        def shadow_fn(i, L, dist):
-            return mask if i == sun_idx else None
-        direct = shadeops.shade_all_lights(ctx.gpu, gb.world_pos, gb.normal, v,
-                                           gb.albedo, metal, rough,
-                                           shadow_fn=shadow_fn)
+            def shadow_fn(i, L, dist):
+                return mask if i == sun_idx else None
+            direct = shadeops.shade_all_lights(ctx.gpu, gb.world_pos, gb.normal, v,
+                                               gb.albedo, metal, rough,
+                                               shadow_fn=shadow_fn)
         ibl_scale = ctx.settings.ibl_intensity * ctx.settings.ambient_scale
         ambient = iblops.ibl_ambient(res["sky_irradiance"], gb.normal, v, gb.albedo,
                                      metal, rough, _scene_sun_dir(ctx), ctx.settings,
@@ -276,24 +333,33 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
     return g
 
 
-def initial_frame_state(width: int, height: int, device) -> Dict[str, object]:
-    """Persistent resources seed: exposure, HZB, TAA history."""
+def initial_frame_state(width: int, height: int, device,
+                        direct_mode: str = "simple") -> Dict[str, object]:
+    """Persistent resources seed: exposure, HZB, TAA history, and under
+    ReSTIR the light reservoirs and the denoiser history."""
     h0, w0, levels = hzbops.hzb_sizes(width, height)
-    return {
+    state = {
         "exposure": torch.tensor(1.0, dtype=torch.float32, device=device),
         "hzb": torch.zeros((levels, h0, w0), dtype=torch.float32, device=device),
         "taa_history": torch.zeros((height, width, 3), dtype=torch.float32,
                                    device=device),
         "taa_valid": False,
     }
+    if direct_mode == "restir":
+        state["restir_reservoir"] = restirops.reservoir_init(height, width, device)
+        state["denoise_state"] = dnops.denoise_init(height, width, device)
+    return state
 
 
 class DeferredRenderer:
     """Builds the graph and carries the persistent FrameState across frames."""
 
-    def __init__(self, gpu, width: int, height: int, rt, shadow_scale: int):
+    def __init__(self, gpu, width: int, height: int, rt, shadow_scale: int,
+                 direct_mode: str = "simple", restir_quality: str = "balanced",
+                 denoiser_profile: str = "relax"):
         self.width, self.height = width, height
         self.rt = rt
+        self.use_restir = direct_mode == "restir"
         m = gpu.meta
         cap = max(int(gpu.lod0_pair_capacity), 1)
         self.graph = build_deferred_graph(
@@ -301,8 +367,9 @@ class DeferredRenderer:
             has_transparent=m["has_transparent"],
             masked_capacity=gpu.bucket_pair_capacity((1,)),
             transparent_capacity=gpu.bucket_pair_capacity((2,)),
-            shadow_scale=shadow_scale)
-        self.state = initial_frame_state(width, height, gpu.device)
+            shadow_scale=shadow_scale, direct_mode=direct_mode,
+            restir_quality=restir_quality, denoiser_profile=denoiser_profile)
+        self.state = initial_frame_state(width, height, gpu.device, direct_mode)
         self.last_stats = {}
         self.keep = ()              # extra resource names to keep per frame
         self.last_resources = {}
@@ -310,13 +377,22 @@ class DeferredRenderer:
     def render(self, gpu, vc, settings, dt: float = 1 / 60):
         ctx = FrameContext(gpu=gpu, vc=vc, settings=settings, dt=dt, rt=self.rt)
         outputs = ["ldr", "raster_overflow", "visible_count", "occluded_count",
-                   "phase2_count", "exposure", "rt_overflow_sun"]
+                   "phase2_count", "exposure"]
+        outputs += (["rt_overflow_di", "rt_k3_lanes_di", "rt_k3_capped_di"]
+                    if self.use_restir else ["rt_overflow_sun"])
         o = self.graph.execute(ctx, self.state, outputs=outputs + list(self.keep))
         self.last_resources = {k: o[k] for k in self.keep}
         self.last_stats = {"raster_overflow": o["raster_overflow"],
                            "visible_pairs": o["visible_count"],
                            "occluded_pairs": o["occluded_count"],
                            "phase2_pairs": o["phase2_count"],
-                           "exposure": o["exposure"],
-                           "rt_overflow_tiles": o["rt_overflow_sun"]}
+                           "exposure": o["exposure"]}
+        if self.use_restir:
+            # under-reported occlusion: overflowed beam tiles + winner lanes
+            # past the compaction capacities; K3 lanes and capped lanes
+            self.last_stats.update(rt_overflow_di=o["rt_overflow_di"],
+                                   rt_k3_lanes_di=o["rt_k3_lanes_di"],
+                                   rt_k3_capped_di=o["rt_k3_capped_di"])
+        else:
+            self.last_stats["rt_overflow_tiles"] = o["rt_overflow_sun"]
         return o["ldr"]

@@ -1,10 +1,11 @@
-"""Ray-tracing scene snapshot for the sun-shadow pass.
+"""Ray-tracing scene snapshot for the traced passes (SunShadow, RTXDI).
 
 Counterpart of hobbyrenderer_tpu/models/pathtracer.py::_subdivide_large /
-build_scene_rt, cut down to what SunShadow needs: the LOD0 world-space
-triangles (oversized ones subdivided), their BVH, the beam table and the
-split tables. The per-triangle attribute tables, the light pool and the
-16-wide BVH belong to the ReSTIR slice."""
+build_scene_rt (pathtracer.py:113-157), cut down to what those passes need:
+the LOD0 world-space triangles (oversized ones subdivided), their 4-wide
+BVH and beam table (K4), the split tables, the 16-wide BVH (K3), the light
+pool and the emissive index. The per-triangle attribute tables belong to
+the path tracer's slice."""
 
 from __future__ import annotations
 
@@ -13,9 +14,11 @@ from typing import Any, Dict, NamedTuple
 import numpy as np
 import torch
 
-from hobbyrenderer_tpu.utils import math as hm
+from hobbyrenderer_tpu_torch.utils import math as hm
 from hobbyrenderer_tpu_torch.ops import beam as beamops
 from hobbyrenderer_tpu_torch.ops import bvh as bvhops
+from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
+from hobbyrenderer_tpu_torch.ops import lights as lightops
 
 
 class SceneRT(NamedTuple):
@@ -24,9 +27,14 @@ class SceneRT(NamedTuple):
     split_to_orig: torch.Tensor  # (Ts,) split tri -> original tri
     split_bary: torch.Tensor   # (Ts, 3, 2) original (u, v) of split verts
     split_world0: torch.Tensor  # (Ts, 3, 3) split verts at load-time world
+    bvh16: b16ops.BVH16 = None   # 16-wide BVH over the split triangles
+    lights: lightops.LightPool = None
+    em_index: torch.Tensor = None  # (T,) original tri -> pool emissive entry (-1 none)
 
 
 RT_FIELDS = ("btable", "split_to_orig", "split_bary", "split_world0")
+POOL_FIELDS = ("em_v0", "em_e1", "em_e2", "em_rad", "em_orig", "em_scale",
+               "power_cdf", "power_pdf", "packed")
 
 
 def _subdivide_large(tri_verts: np.ndarray, max_rounds: int = 4,
@@ -63,9 +71,11 @@ def _subdivide_large(tri_verts: np.ndarray, max_rounds: int = 4,
     return verts.astype(np.float32), orig.astype(np.int32), bary.astype(np.float32)
 
 
-def build_scene_rt(scene, device) -> SceneRT:
+def build_scene_rt(scene, device, gpu=None) -> SceneRT:
     """Host-side flatten of every instance's LOD0 triangles to world space,
-    BVH + beam table build, upload to ``device``."""
+    BVH + beam table build, upload to ``device``. With the uploaded scene
+    ``gpu`` (the ReSTIR frame), also the 16-wide BVH, the light pool and
+    the emissive index."""
     tris = []
     for I in scene.instances:
         mesh = scene.meshes[I.prim]
@@ -76,14 +86,25 @@ def build_scene_rt(scene, device) -> SceneRT:
     bvh = bvhops.build_bvh(split_verts)
     host = dict(btable=beamops.beam_table(bvh.table), split_to_orig=split_to_orig,
                 split_bary=split_bary, split_world0=split_verts)
-    return scene_rt_from_numpy(host, device, bvh=bvh)
+    if gpu is None:
+        return scene_rt_from_numpy(host, device, bvh=bvh)
+    host["bvh16"] = b16ops.build_bvh16_arrays(split_verts)
+    rt = scene_rt_from_numpy(host, device, bvh=bvh)
+    pool = lightops.build_light_pool(scene, gpu)
+    em_index = np.full(tri_verts.shape[0], -1, np.int64)
+    orig = pool.em_orig.cpu().numpy()
+    live = orig >= 0
+    em_index[orig[live]] = np.nonzero(live)[0]
+    return rt._replace(lights=pool, em_index=torch.as_tensor(em_index, device=device))
 
 
 def scene_rt_from_numpy(d: Dict[str, Any], device="cpu", bvh=None) -> SceneRT:
-    """SunShadow subset of a SceneRT as numpy (``{name: array}``, the JAX
-    SceneRT's leaves: btable, split_to_orig, split_bary, split_world0, and
-    optionally bvh_table / bvh_order / bvh_root_box) -> the port's SceneRT
-    on ``device``."""
+    """A SceneRT as numpy (``{name: array}``, the JAX SceneRT's leaves:
+    btable, split_to_orig, split_bary, split_world0; optionally bvh_table /
+    bvh_order / bvh_root_box; ``bvh16`` as a dict of the JAX BVH16's table
+    (transposed (128, I+L) as the JAX package stores it, or row-major),
+    order, root_box, recs, slot_of; ``lights`` as a dict of the LightPool's
+    fields and ``em_index``) -> the port's SceneRT on ``device``."""
     def t(a):
         a = np.asarray(a)
         if a.dtype.kind in "iu":
@@ -95,4 +116,17 @@ def scene_rt_from_numpy(d: Dict[str, Any], device="cpu", bvh=None) -> SceneRT:
                          order=np.asarray(d["bvh_order"], np.int32),
                          root_box=np.asarray(d["bvh_root_box"], np.float32),
                          num_tris=int(np.asarray(d["split_to_orig"]).shape[0]))
-    return SceneRT(bvh=bvh, **{k: t(d[k]) for k in RT_FIELDS})
+    extra = {}
+    if d.get("bvh16") is not None:
+        b = dict(d["bvh16"])
+        if b["table"].shape[0] == b16ops.ROW_W and b["table"].shape[1] != b16ops.ROW_W:
+            b["table"] = b16ops.from_jax_table(b["table"])
+        extra["bvh16"] = b16ops.bvh16_from_numpy(
+            b, int(np.asarray(d["split_to_orig"]).shape[0]), device)
+    if d.get("lights") is not None:
+        lp = d["lights"]
+        extra["lights"] = lightops.LightPool(
+            n_analytic=int(lp["n_analytic"]), n_total=int(lp["n_total"]),
+            **{k: t(lp[k]) for k in POOL_FIELDS})
+        extra["em_index"] = t(d["em_index"])
+    return SceneRT(bvh=bvh, **{k: t(d[k]) for k in RT_FIELDS}, **extra)

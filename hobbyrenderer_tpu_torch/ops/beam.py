@@ -21,6 +21,7 @@ PIX = TILE * TILE
 REF_TRI_CHUNK = 256      # triangles per bounding-box chunk
 REF_RAY_CHUNK = 4096     # rays per box-cull step
 REF_PAIR_BATCH = 8192    # (ray, chunk) pairs per Möller-Trumbore step
+STACK = 64               # the kernel's per-ray stack depth
 
 launches = 0      # kernel launches (CPU reference calls are not counted)
 
@@ -87,6 +88,26 @@ def _beam_any_hit_tiles_cuda(btable, rays):
     kernels.check(err, "hr_beam_any_hit_tiles")
     launches += 1
     return occ, ovf
+
+
+def tile_majority_mask(key, H: int, W: int, probes: int = 8, exclude: int = None):
+    """(H, W) integer keys -> bool (H, W): lanes that match their 32x32
+    tile's approximate modal key, the mode estimated by counting the
+    matches of ``probes`` evenly spaced lanes (beam.py:370-402). ``exclude``
+    is a sentinel key that is never elected nor matched."""
+    ty = -(-H // TILE)
+    tx = -(-W // TILE)
+    kp = F.pad(key, (0, tx * TILE - W, 0, ty * TILE - H), value=-(2 ** 30))
+    t = kp.reshape(ty, TILE, tx, TILE).permute(0, 2, 1, 3).reshape(ty * tx, PIX)
+    cand = t[:, ::PIX // probes][:, :probes]                       # (T, P)
+    cnt = torch.sum(t[:, None, :] == cand[:, :, None], -1)        # (T, P)
+    if exclude is not None:
+        cnt = torch.where(cand == exclude, -1, cnt)
+    rep = torch.gather(cand, 1, torch.argmax(cnt, -1)[:, None])
+    m = t == rep
+    if exclude is not None:
+        m = m & (rep != exclude)
+    return unpack_tiles(m, H, W)
 
 
 def leaf_triangles(btable):
@@ -169,6 +190,57 @@ def beam_any_hit_tiles_reference(btable, rays):
             hits.index_add_(0, rr, h.to(torch.int32))
         occ[ri] = hits > 0
     return occ.reshape(T, PIX).to(torch.float32), zeros_t
+
+
+def beam_walk_rows(btable, rays):
+    """The kernel's per-ray walk as a plain lockstep wavefront (any device)
+    -> (occluded (T, 1024) f32, visited (N,) bool: the table rows some ray
+    read). Pop the top of a STACK-deep stack; a leaf tests its 4
+    records, an interior row pushes children 0..3 whose padded box the ray
+    meets; a hit ends the ray. It measures what the walk reads (the byte
+    term of the kernel's bound); the plain version above is what the kernel
+    is held against."""
+    N = btable.shape[0]
+    T = rays.shape[0]
+    dev = rays.device
+    r = rays.permute(0, 2, 1).reshape(-1, 8)
+    idx = torch.nonzero((r[:, 7] > 0.5) & (r[:, 6] > 1e-4)).flatten()
+    o, d, tmax = r[idx, 0:3], r[idx, 3:6], r[idx, 6]
+    inv = safe_inv_dir(d)
+    R = idx.shape[0]
+    stk = torch.zeros((R, STACK), dtype=torch.int64, device=dev)
+    sp = torch.ones(R, dtype=torch.int64, device=dev)
+    hit = torch.zeros(R, dtype=torch.bool, device=dev)
+    visited = torch.zeros(N, dtype=torch.bool, device=dev)
+    while True:
+        li = torch.nonzero((sp > 0) & ~hit).flatten()
+        if li.numel() == 0:
+            break
+        spl = sp[li] - 1
+        q = stk[li, spl]
+        visited[q] = True
+        row = btable[q]
+        leaf = row[:, 127] > 0.5
+        recs = row[:, :64].reshape(-1, 4, 16)
+        tri = torch.where(recs[..., 9:10] >= 0.0, recs[..., :9], 0.0)   # pad: det 0
+        hit[li] = leaf & _mt_any(o[li], d[li], tmax[li], tri)
+        box = row[:, :24].reshape(-1, 4, 6)
+        lo, hi = box[..., :3], box[..., 3:]
+        pad = 1e-5 * torch.clamp(torch.maximum(lo.abs(), hi.abs()), min=1.0)
+        t0 = (lo - pad - o[li, None]) * inv[li, None]
+        t1 = (hi + pad - o[li, None]) * inv[li, None]
+        tn = torch.clamp(torch.minimum(t0, t1).amax(-1), min=0.0)
+        tf = torch.minimum(torch.maximum(t0, t1).amin(-1), tmax[li, None])
+        child = 4 * q[:, None] + 1 + torch.arange(4, device=dev)
+        push = ~leaf[:, None] & (lo <= hi).all(-1) & (tn <= tf) & (child < N)
+        for ch in range(4):
+            m = push[:, ch] & (spl < STACK)
+            stk[li[m], spl[m]] = child[m, ch]
+            spl = spl + m.to(torch.int64)
+        sp[li] = spl
+    occ = torch.zeros(r.shape[0], device=dev)
+    occ[idx] = hit.to(torch.float32)
+    return occ.reshape(T, PIX), visited
 
 
 def beam_any_hit(btable, o, d, t_max, active, H: int, W: int):

@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from hobbyrenderer_tpu.utils.math import prev_pow2
+from hobbyrenderer_tpu_torch.utils.math import prev_pow2
 
 
 def hzb_sizes(width: int, height: int):

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from hobbyrenderer_tpu.scene.cooker import MESHLET_MAX_TRIS, MESHLET_MAX_VERTS
+from hobbyrenderer_tpu_torch.scene.cooker import MESHLET_MAX_TRIS, MESHLET_MAX_VERTS
 from hobbyrenderer_tpu_torch.ops import raster_kernel as rk
 from hobbyrenderer_tpu_torch.ops import texture as texops
 from hobbyrenderer_tpu_torch.scene.gpu import (MAT_ALPHA_CUTOFF, MAT_BASE_COLOR,

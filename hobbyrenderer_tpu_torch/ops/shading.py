@@ -7,7 +7,7 @@ import math
 
 import torch
 
-from hobbyrenderer_tpu.scene.scene import LIGHT_DIRECTIONAL, LIGHT_SPOT
+from hobbyrenderer_tpu_torch.scene.scene import LIGHT_DIRECTIONAL, LIGHT_SPOT
 from hobbyrenderer_tpu_torch.utils import tmath as tm
 
 MIN_ROUGHNESS = 0.03

@@ -20,16 +20,30 @@ def extend_rows(x, halo: int):
                       x[-1:].expand(halo, *x.shape[1:])], 0)
 
 
-def warp_image(img, motion, halo: int = 32):
-    """img (H, W, C) sampled bilinearly at pixel_center + motion (H, W, 2)."""
+def pad_edges(x, pad: int):
+    """(h, w, ...) -> (h + 2*pad, w + 2*pad, ...), edge-replicated."""
+    x = extend_rows(x, pad)
+    return torch.cat([x[:, :1].expand(-1, pad, *x.shape[2:]), x,
+                      x[:, -1:].expand(-1, pad, *x.shape[2:])], 1)
+
+
+def warp_image(img, motion, halo: int = 32, bilinear: bool = True):
+    """img (H, W, C) sampled at pixel_center + motion (H, W, 2), bilinearly
+    or (``bilinear=False``) at the nearest texel; integer data rides as f32
+    with bilinear=False (one-hot weights move values exactly)."""
     H, W, Cc = img.shape
     R = WARP_RADIUS
     col_pad = WARP_COL_PAD
     dev = img.device
     xs = torch.arange(W, dtype=torch.float32, device=dev)
     ys = torch.arange(H, dtype=torch.float32, device=dev)
-    sx = torch.clamp(xs[None, :] + motion[..., 0], 0.0, W - 1.0)
-    sy_l = torch.clamp(ys[:, None] + motion[..., 1], 0.0, H - 1.0)
+    if bilinear:
+        sx = torch.clamp(xs[None, :] + motion[..., 0], 0.0, W - 1.0)
+        sy_l = torch.clamp(ys[:, None] + motion[..., 1], 0.0, H - 1.0)
+    else:
+        # nearest: floor(pixel_center + motion) = round-to-texel
+        sx = torch.clamp(torch.floor(xs[None, :] + 0.5 + motion[..., 0]), 0.0, W - 1.0)
+        sy_l = torch.clamp(torch.floor(ys[:, None] + 0.5 + motion[..., 1]), 0.0, H - 1.0)
     # global integer shift; the window is gathered by index so no value is
     # read back to the host
     gy = torch.clamp(torch.round(torch.mean(sy_l - ys[:, None])).to(torch.int64),

@@ -1,7 +1,9 @@
 """Top-level Renderer: scene, camera, frame graph and frame loop on an
 explicit torch device (counterpart of hobbyrenderer_tpu/renderer.py).
 
-Only the default Normal-mode frame is ported; every other option raises
+Ported: the Normal-mode frame with simple direct lighting or ReSTIR DI
+(``direct_mode="restir"``, every ``restir_quality`` preset, both
+denoisers) and no indirect mode; every other option raises
 NotImplementedError naming the ROADMAP slice that brings it."""
 
 from __future__ import annotations
@@ -13,18 +15,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hobbyrenderer_tpu.config import Config, RenderingMode
-from hobbyrenderer_tpu.scene import Camera, make_default_cube_scene, make_stress_scene
-from hobbyrenderer_tpu.scene.camera_state import CameraStateManager
-from hobbyrenderer_tpu.utils import math as hm
-from hobbyrenderer_tpu.utils.image import write_png
-from hobbyrenderer_tpu.utils.timing import PROFILER
+from hobbyrenderer_tpu_torch.config import Config, RenderingMode
+from hobbyrenderer_tpu_torch.scene.camera import Camera
+from hobbyrenderer_tpu_torch.scene.procedural import make_default_cube_scene, make_stress_scene
+from hobbyrenderer_tpu_torch.scene.camera_state import CameraStateManager
+from hobbyrenderer_tpu_torch.utils import math as hm
+from hobbyrenderer_tpu_torch.utils.image import write_png
+from hobbyrenderer_tpu_torch.utils.timing import PROFILER
 from hobbyrenderer_tpu_torch.models.deferred import DeferredRenderer
 from hobbyrenderer_tpu_torch.models.scene_rt import build_scene_rt
 from hobbyrenderer_tpu_torch.scene.gpu import build_scene_gpu, update_instance_transforms
 
-_RESTIR = "ROADMAP Queue 1 slice 4 (ReSTIR DI + wtrace)"
-_LATER = "ROADMAP Queue 1 slice 5+ (options outside the default Normal frame)"
+_REGIR = "ROADMAP Queue 1 slice 7 (ReGIR)"
+_LATER = "ROADMAP Queue 1 slice 5+ (options outside the ported Normal frames)"
 
 
 def check_config(cfg: Config):
@@ -34,8 +37,11 @@ def check_config(cfg: Config):
             raise NotImplementedError(f"{what} is not ported yet: {slice_}")
 
     need(cfg.mode == RenderingMode.NORMAL, f"--mode {cfg.mode}", _LATER)
-    need((cfg.direct_mode or "simple") == "simple",
-         f"--direct-mode {cfg.direct_mode}", _RESTIR)
+    need((cfg.direct_mode or "simple") in ("simple", "restir"),
+         f"--direct-mode {cfg.direct_mode}", _LATER)
+    need(not cfg.regir, "--regir", _REGIR)
+    if (cfg.direct_mode or "simple") == "restir" and cfg.denoiser not in ("relax", "reblur"):
+        raise ValueError(f"unknown denoiser '{cfg.denoiser}' (relax | reblur)")
     need((cfg.indirect_mode or "none") == "none",
          f"--indirect-mode {cfg.indirect_mode}", _LATER)
     need(cfg.render_scale == 1.0, "--render-scale != 1 (TAA upscaling)", _LATER)
@@ -74,7 +80,7 @@ class Renderer:
             elif cfg.scene.startswith("stress:"):
                 self.scene = make_stress_scene(grid=int(cfg.scene.split(":")[1]))
             else:
-                from hobbyrenderer_tpu.scene.loader import load_gltf_scene
+                from hobbyrenderer_tpu_torch.scene.loader import load_gltf_scene
                 self.scene = load_gltf_scene(cfg.scene, cache_dir=cfg.cache_dir)
         if self.scene.animations:
             raise NotImplementedError(
@@ -102,10 +108,14 @@ class Renderer:
         self.camera_state.start()
         with PROFILER.scope("Init/BVH"):
             t0 = time.perf_counter()
-            rt = build_scene_rt(self.scene, self.device)
+            restir = (cfg.direct_mode or "simple") == "restir"
+            rt = build_scene_rt(self.scene, self.device, gpu=self.gpu if restir else None)
             self.bvh_seconds = time.perf_counter() - t0
         self._model = DeferredRenderer(self.gpu, cfg.render_width, cfg.render_height,
-                                       rt=rt, shadow_scale=cfg.shadow_scale)
+                                       rt=rt, shadow_scale=cfg.shadow_scale,
+                                       direct_mode=cfg.direct_mode or "simple",
+                                       restir_quality=cfg.restir_quality,
+                                       denoiser_profile=cfg.denoiser)
 
     @property
     def graph(self):

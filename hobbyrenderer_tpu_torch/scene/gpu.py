@@ -18,9 +18,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from hobbyrenderer_tpu.scene.cooker import MAX_LODS, MESHLET_MAX_TRIS, MESHLET_MAX_VERTS
-from hobbyrenderer_tpu.scene.scene import ALPHA_MASKED, Scene
-from hobbyrenderer_tpu.utils import math as hm
+from hobbyrenderer_tpu_torch.scene.cooker import MAX_LODS, MESHLET_MAX_TRIS, MESHLET_MAX_VERTS
+from hobbyrenderer_tpu_torch.scene.scene import ALPHA_MASKED, Scene
+from hobbyrenderer_tpu_torch.utils import math as hm
 
 # Material float-layout offsets (same layout as the JAX package)
 MAT_BASE_COLOR = 0      # 4
@@ -170,7 +170,7 @@ def scene_gpu_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> SceneGPU:
 
 
 def _texture_arrays(scene: Scene) -> Dict[str, np.ndarray]:
-    from hobbyrenderer_tpu.scene.textures import build_texture_table
+    from hobbyrenderer_tpu_torch.scene.textures import build_texture_table
     t = build_texture_table(scene)
     return dict(tex_table=t["tex_table"], mat_tex_size=t["mat_tex_size"],
                 mat_mip_off=t["mat_mip_off"])

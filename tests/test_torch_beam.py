@@ -15,6 +15,17 @@ from hobbyrenderer_tpu_torch.ops import bvh as tbvh
 from hobbyrenderer_tpu_torch.ops.resize import resize_bilinear
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test workers on one machine: one torch thread
+    each keeps the plain versions' many small ops from oversubscribing the
+    cores (each op's thread team otherwise waits on descheduled threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -82,6 +93,28 @@ def test_plain_k4_matches_pallas_kernel(case):
     np.testing.assert_array_equal(occ[cmp], jocc[cmp])
     assert not occ[~act_t].any()
     assert not ovf.numpy().any()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_beam_walk_rows_matches_plain(case):
+    """The kernel's stack walk as a wavefront gives the plain version's
+    occlusion; the rows it reads include the root and each read row's
+    parent, and are fewer than the table's."""
+    c = CASES[case]
+    H, W = c["H"], c["W"]
+    tris = _tri_soup(c["n"], seed=c["seed"])
+    btable = torch.as_tensor(tbeam.beam_table(tbvh.build_bvh(tris).table))
+    o, d = _coherent_rays(H, W, seed=c["ray_seed"], jitter=c["jitter"])
+    active = torch.ones((H, W), dtype=torch.bool)
+    active[3::11, :] = False
+    rays = tbeam.pack_rays_tiles(torch.as_tensor(o), torch.as_tensor(d),
+                                 torch.full((H, W), 50.0), active, H, W)
+    occ, seen = tbeam.beam_walk_rows(btable, rays)
+    ref, _ = tbeam.beam_any_hit_tiles_reference(btable, rays)
+    assert torch.equal(occ, ref) and 0.05 < float(ref.mean()) < 0.95
+    rows = torch.nonzero(seen).flatten()
+    assert bool(seen[0]) and bool(seen[(rows[rows > 0] - 1) // 4].all())
+    assert 1 < rows.numel() < seen.numel()
 
 
 def test_beam_any_hit_image_roundtrip():

@@ -15,9 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from hobbyrenderer_tpu.config import Config
+from hobbyrenderer_tpu.config import Config as JaxConfig
 from hobbyrenderer_tpu.graph.rendergraph import FrameContext
 from hobbyrenderer_tpu.renderer import Renderer as JaxRenderer
+from hobbyrenderer_tpu_torch.config import Config
 from hobbyrenderer_tpu_torch.ops import beam as tbeam
 from hobbyrenderer_tpu_torch.ops import raster_kernel as trk
 from hobbyrenderer_tpu_torch.renderer import Renderer as TorchRenderer
@@ -28,6 +29,17 @@ SCENES = {"cube": (64, 48), "stress:2": (96, 64), "stress:4": (96, 64)}
 # (min share of pixels within 2/255 on every channel, max mean |delta|)
 # stress:4 is the smallest grid with an alpha-blend instance (Transparent)
 LDR_TOL = {"cube": (0.99, 0.5), "stress:2": (0.97, 1.5), "stress:4": (0.97, 1.5)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test workers on one machine: one torch thread
+    each keeps the plain versions' many small ops from oversubscribing the
+    cores (each op's thread team otherwise waits on descheduled threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -58,11 +70,11 @@ def _render_both(name, tmp_root):
     if name in _CACHE:
         return _CACHE[name]
     w, h = SCENES[name]
-    cfg = Config(scene=name, width=w, height=h,
-                 cache_dir=os.path.join(str(tmp_root), name.replace(":", "_")))
-    jr = JaxRenderer(cfg)
+    kw = dict(scene=name, width=w, height=h,
+              cache_dir=os.path.join(str(tmp_root), name.replace(":", "_")))
+    jr = JaxRenderer(JaxConfig(**kw))
     _hook_jax(jr)
-    tr = TorchRenderer(cfg, device="cpu")
+    tr = TorchRenderer(Config(**kw), device="cpu")
     tr._model.keep = KEEP
     frames = []
     for _ in range(FRAMES):
@@ -131,7 +143,7 @@ def test_cpu_frame_counts_no_kernel_launch(tmp_path):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(direct_mode="restir"), dict(indirect_mode="sharc"), dict(mode="path_tracer"),
+    dict(regir=True, direct_mode="restir"), dict(indirect_mode="sharc"), dict(mode="path_tracer"),
     dict(mode="normal_basic"), dict(render_scale=0.5), dict(tex_streaming=True),
     dict(execute_per_pass=True), dict(debug_view="ssgi_radiance")])
 def test_unported_options_raise(tmp_path, opt):

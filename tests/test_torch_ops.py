@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from hobbyrenderer_tpu.config import RenderSettings
+from hobbyrenderer_tpu.config import RenderSettings as JaxRenderSettings
 from hobbyrenderer_tpu.ops import atmosphere as jatm
 from hobbyrenderer_tpu.ops import culling as jcull
 from hobbyrenderer_tpu.ops import hzb as jhzb
@@ -34,11 +34,24 @@ from hobbyrenderer_tpu_torch.ops import sampling as tsmp
 from hobbyrenderer_tpu_torch.ops import shading as tshade
 from hobbyrenderer_tpu_torch.ops import sky as tsky
 from hobbyrenderer_tpu_torch.ops import taa as ttaa
+from hobbyrenderer_tpu_torch.config import RenderSettings
 from hobbyrenderer_tpu_torch.ops import warp as twarp
 
-SETTINGS = RenderSettings()
+SETTINGS = RenderSettings()            # the port's, handed to the port
+JSETTINGS = JaxRenderSettings().as_pytree()
 SUN = np.asarray([0.35, -0.75, 0.45], np.float32)
 SUN = SUN / np.linalg.norm(SUN)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test workers on one machine: one torch thread
+    each keeps the plain versions' many small ops from oversubscribing the
+    cores (each op's thread team otherwise waits on descheduled threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _unit(rng, shape):
@@ -65,7 +78,7 @@ def test_ray_helpers_and_cone_sampling():
     _close(b, jb, 1e-6)
     cos_max = float(np.cos(np.float32(SETTINGS.sun_angular_radius)))
     _close(tsmp.sample_cone(torch.as_tensor(n), cos_max, torch.as_tensor(u1), torch.as_tensor(u2)),
-           jsmp.sample_cone(jnp.asarray(n), jnp.cos(jnp.float32(SETTINGS.sun_angular_radius)),
+           jsmp.sample_cone(jnp.asarray(n), jnp.cos(JSETTINGS.sun_angular_radius),
                             jnp.asarray(u1), jnp.asarray(u2)), 1e-6)
 
 
@@ -78,11 +91,11 @@ def test_brdf_and_ibl_ambient():
     _close(tshade.eval_brdf(T(n), T(v), T(l), T(alb), T(metal), T(rough)),
            jshade.eval_brdf(*(jnp.asarray(a) for a in (n, v, l, alb, metal, rough))), 1e-5, 1e-4)
     sh = tibl.build_sky_irradiance(T(SUN), SETTINGS)
-    jsh = jax.jit(jibl.build_sky_irradiance)(jnp.asarray(SUN), SETTINGS.as_pytree())
+    jsh = jax.jit(jibl.build_sky_irradiance)(jnp.asarray(SUN), JSETTINGS)
     _close(sh, jsh, 1e-5, 1e-4)
     got = tibl.ibl_ambient(sh, T(n), T(v), T(alb), T(metal), T(rough), T(SUN), SETTINGS)
     want = jax.jit(jibl.ibl_ambient)(jsh, *(jnp.asarray(a) for a in (n, v, alb, metal, rough)),
-                                     jnp.asarray(SUN), SETTINGS.as_pytree())
+                                     jnp.asarray(SUN), JSETTINGS)
     _close(got, want, 1e-4, 1e-3)
 
 
@@ -95,7 +108,7 @@ def test_atmosphere_luts_and_sky():
     d[20, 30] = -SUN                                      # on the sun disk
     got = tsky.sky_radiance_fast(torch.as_tensor(d), torch.as_tensor(SUN), SETTINGS)
     want = jax.jit(jsky.sky_radiance_fast)(jnp.asarray(d), jnp.asarray(SUN),
-                                           SETTINGS.as_pytree())
+                                           JSETTINGS)
     _close(got, want, 1e-4, 1e-3)
     assert float(got[20, 30].min()) > 1000.0              # the disk itself
 
@@ -119,7 +132,7 @@ def test_hzb_and_compaction():
 def test_post_chain():
     rng = np.random.default_rng(4)
     hdr = (rng.random((48, 64, 3), np.float32) ** 4 * 20).astype(np.float32)
-    st, sj = SETTINGS, SETTINGS.as_pytree()
+    st, sj = SETTINGS, JSETTINGS
     hist = tpost.luminance_histogram(torch.as_tensor(hdr))
     np.testing.assert_array_equal(hist.numpy(), np.asarray(jpost.luminance_histogram(jnp.asarray(hdr))))
     e = tpost.exposure_adapt(hist, torch.tensor(1.0), 1 / 60, st)
@@ -146,7 +159,7 @@ def test_warp_and_taa(shift):
                                torch.as_tensor(motion), valid, SETTINGS)
         want = jax.jit(jtaa.taa_resolve)(jnp.asarray(hdr), jnp.asarray(img),
                                          jnp.asarray(motion), jnp.bool_(valid),
-                                         SETTINGS.as_pytree())
+                                         JSETTINGS)
         _close(got, want, 1e-5)
 
 

@@ -22,6 +22,17 @@ from hobbyrenderer_tpu_torch.scene.gpu import build_scene_gpu as torch_build_sce
 SCENES = {"cube": make_default_cube_scene, "stress:2": lambda: make_stress_scene(grid=2)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test workers on one machine: one torch thread
+    each keeps the plain versions' many small ops from oversubscribing the
+    cores (each op's thread team otherwise waits on descheduled threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -13,6 +13,17 @@ EDGES = np.asarray([0, 1, 2, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF,
                     0xDEADBEEF, 65535, 65536], np.uint32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test workers on one machine: one torch thread
+    each keeps the plain versions' many small ops from oversubscribing the
+    cores (each op's thread team otherwise waits on descheduled threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _words(seed, n):
     rng = np.random.default_rng(seed)
     w = rng.integers(0, 2 ** 32, size=n, dtype=np.uint64).astype(np.uint32)
