@@ -6,20 +6,23 @@
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
 parallel), holds each against its plain PyTorch version at the shapes of
 the 1080p stress frames, renders small frames on the GPU and on the CPU and
-compares them, then drives the two main paths — Renderer(Config(
-scene="stress", 1920x1080), device="cuda") with simple direct light, and
-the same with direct_mode="restir" (RTXDI + Denoise, whose passes run under
-torch.cuda.set_sync_debug_mode("error")), 8 frames each — and checks that
-every kernel of each path launched. Any failed check raises: the script
-then exits nonzero without its final line.
+compares them, then drives the three main paths — Renderer(Config(
+scene="stress", 1920x1080), device="cuda") with simple direct light, the
+same with direct_mode="restir" (RTXDI + Denoise, whose passes run under
+torch.cuda.set_sync_debug_mode("error")), and mode="normal_basic" with
+indirect_mode="ddgi" (cascaded shadow maps + DDGI), 8 frames each, then 4
+NormalBasic frames with SSGI — and checks that every kernel of each path
+launched. Any failed check raises: the script then exits nonzero without
+its final line.
 
-Kernels: K1 tile raster (csrc/raster_resolve.cu), K2 ReSTIR candidates
-(csrc/restir_candidates.cu), K3 bvh16 walk (csrc/bvh16_walk.cu), K4 any hit
-(csrc/beam_any_hit.cu). Each one's bound (bound_ms) is the larger of its
-bytes (inputs read once, outputs written once; of the walks' node tables,
-K3 and K4, only the rows this run's rays read) over 3.35 TB/s and its fp32
-operations on this run's data over 67 TFLOP/s (H100 SXM data sheet). K2
-and K3 must equal their plain versions bit for bit, in every output.
+Kernels: K1 tile raster and K5 depth-only tile raster
+(csrc/raster_resolve.cu), K2 ReSTIR candidates (csrc/restir_candidates.cu),
+K3 bvh16 walk (csrc/bvh16_walk.cu), K4 any hit (csrc/beam_any_hit.cu).
+Each one's bound (bound_ms) is the larger of its bytes (inputs read once,
+outputs written once; of the walks' node tables, K3 and K4, only the rows
+this run's rays read) over 3.35 TB/s and its fp32 operations on this run's
+data over 67 TFLOP/s (H100 SXM data sheet). K2, K3 and K5 must equal their
+plain versions bit for bit, in every output.
 
 Output, in order: the card's name and power limit, versions, build time,
 one line per phase, the kernels JSON line, and last
@@ -116,7 +119,17 @@ def main():
     from hobbyrenderer_tpu_torch.ops import sampling as smp
     from hobbyrenderer_tpu_torch.profile_frame import median_ms, time_passes
     from hobbyrenderer_tpu_torch.renderer import Renderer
-    counters = {"K1": rk, "K2": rko, "K3": b16ops, "K4": beamops}
+    t_start = time.perf_counter()
+    # each kernel's launch count: (module, attribute)
+    counters = {"K1": (rk, "launches"), "K2": (rko, "launches"), "K3": (b16ops, "launches"),
+                "K4": (beamops, "launches"), "K5": (rk, "tiles_launches")}
+
+    def reset_counts():
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
+
+    def counts():
+        return {k: getattr(m, attr) for k, (m, attr) in counters.items()}
 
     # ---- phase 1: card, versions, kernel build ------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -225,15 +238,14 @@ def main():
     setup_s = time.perf_counter() - t0
     r._model.keep = ("gbuffer", "hdr")
     n_frames = 8
-    for m in counters.values():
-        m.launches = 0
+    reset_counts()
     frame_ms = []
     for _ in range(n_frames):
         f0 = time.perf_counter()
         r.render_frame()
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - f0) * 1e3)
-    launches = {k: m.launches for k, m in counters.items()}
+    launches = counts()
     ldr = r.last_frame
     gb = r._model.last_resources["gbuffer"]
     hdr = r._model.last_resources["hdr"]
@@ -252,7 +264,7 @@ def main():
     assert valid > 0.5, valid
     assert launches["K1"] >= 3 * n_frames, launches
     assert launches["K4"] >= n_frames, launches
-    assert launches["K2"] == 0 and launches["K3"] == 0, launches
+    assert launches["K2"] == 0 and launches["K3"] == 0 and launches["K5"] == 0, launches
     assert stats["rt_overflow_tiles"] == 0
     del r, gb, hdr, ldr
 
@@ -393,8 +405,7 @@ def main():
     r._model.keep = ("gbuffer", "hdr")
     # per-pass CUDA events; a host sync inside RTXDI or Denoise raises
     events = time_passes(r.graph, strict=("RTXDI", "Denoise"))
-    for m in counters.values():
-        m.launches = 0
+    reset_counts()
     frame_rx, stats_rx = [], []
     for _ in range(n_frames):
         f0 = time.perf_counter()
@@ -402,7 +413,7 @@ def main():
         torch.cuda.synchronize()
         frame_rx.append((time.perf_counter() - f0) * 1e3)
         stats_rx.append(r.stats())
-    launches_rx = {k: m.launches for k, m in counters.items()}
+    launches_rx = counts()
     ldr = r.last_frame
     gb = r._model.last_resources["gbuffer"]
     hdr = r._model.last_resources["hdr"]
@@ -429,6 +440,153 @@ def main():
     assert launches_rx["K1"] >= 3 * n_frames, launches_rx
     assert launches_rx["K2"] >= n_frames and launches_rx["K3"] >= n_frames, launches_rx
     assert launches_rx["K4"] >= 2 * n_frames, launches_rx
+    assert launches_rx["K5"] == 0, launches_rx
+    del r, gb, hdr, ldr
+
+    # ---- phase 10: K5 against its plain version on the first NormalBasic
+    # 1080p stress frame's shadow atlas --------------------------------------
+    t0 = time.perf_counter()
+    cap5 = {}
+    k5_orig = rk.raster_tiles
+
+    def k5_spy(records, work_tile, work_slot, **kw):
+        cap5.setdefault("k5", (records, work_tile, work_slot, kw))
+        return k5_orig(records, work_tile, work_slot, **kw)
+
+    rk.raster_tiles = k5_spy
+    try:
+        r = Renderer(Config(scene="stress", width=1920, height=1080, mode="normal_basic",
+                            cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_nb")),
+                     device="cuda")
+        r.render_frame()
+        torch.cuda.synchronize()
+        r.shutdown()
+    finally:
+        rk.raster_tiles = k5_orig
+    assert "k5" in cap5, "the first NormalBasic frame did not reach K5"
+    records5, wt5, ws5, kw5 = cap5["k5"]
+    assert kw5["depth_only"], kw5
+    tiles5, tx5 = kw5["tiles"], kw5["tx"]
+    n_items5 = int((wt5 < tiles5).sum())
+    log(f"captured first 1080p stress NormalBasic frame in {time.perf_counter() - t0:.1f} s")
+    k5_runs = {}
+    for depth_only in (True, False):
+        def k5_call(fn=rk.raster_tiles, depth_only=depth_only):
+            return fn(records5, wt5, ws5, tiles=tiles5, tx=tx5, depth_only=depth_only)
+        d5, v5 = k5_call()
+        rd5, rv5 = k5_call(rk.raster_tiles_reference)
+        torch.cuda.synchronize()
+        d_mis, v_mis = int((d5 != rd5).sum()), int((v5 != rv5).sum())
+        ms = cuda_ms(k5_call)
+        pms = cuda_ms(lambda: k5_call(rk.raster_tiles_reference), reps=3)
+        # 13 fp32 ops per (item, pixel, row): 3 planes x (2 mul + 2 add), l1 + l2
+        bnd = bound(nbytes(records5, wt5, ws5, d5, v5), n_items5 * 1024 * 32 * 13)
+        k5_runs[depth_only] = dict(ms=ms, plain_ms=pms, bound=bnd,
+                                   err=float((d5 - rd5).abs().max()))
+        log(f"phase10 K5 depth_only={depth_only} tiles={tiles5} items={n_items5} "
+            f"records={tuple(records5.shape)}: depth mismatch {d_mis}, visid mismatch {v_mis}, "
+            f"covered texels {float((rd5 > 0).float().mean()):.3f}, kernel {ms:.3f} ms, plain "
+            f"{pms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        assert d_mis == 0 and v_mis == 0, "K5 is not bit-exact with its plain version"
+        assert depth_only or int((v5 >= 0).sum()) > 0
+    k5_main = k5_runs[True]
+    del records5, wt5, ws5, d5, v5, rd5, rv5
+
+    # ---- phase 11: NormalBasic frames, CUDA (kernels) against CPU (plain) --
+    for mode, need in (("none", 0.99), ("ssgi", 0.97), ("ddgi", 0.97)):
+        cfg = Config(scene="stress:4", width=256, height=192, mode="normal_basic",
+                     indirect_mode=mode,
+                     cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke4nb_" + mode))
+        t0 = time.perf_counter()
+        rg = Renderer(cfg, device="cuda")
+        rc = Renderer(cfg, device="cpu")
+        for _ in range(3):
+            lg = rg.render_frame().cpu().numpy()
+            lc = rc.render_frame().numpy()
+        rg.shutdown()
+        rc.shutdown()
+        diff = np.abs(lg.astype(np.int32) - lc.astype(np.int32)).max(-1)
+        within = float(np.mean(diff <= 2))
+        log(f"phase11 normal_basic+{mode} stress:4 256x192 x3 frames cuda vs cpu: "
+            f"{within * 100:.3f}% of LDR pixels within 2/255, mean |d| {float(diff.mean()):.4f}, "
+            f"max {int(diff.max())} ({time.perf_counter() - t0:.1f} s)")
+        assert within >= need, (mode, within)
+
+    # ---- phase 12: the NormalBasic + DDGI main path, then SSGI --------------
+    t0 = time.perf_counter()
+    r = Renderer(Config(scene="stress", width=1920, height=1080, mode="normal_basic",
+                        indirect_mode="ddgi",
+                        cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_nb_main")),
+                 device="cuda")
+    setup_nb = time.perf_counter() - t0
+    r._model.keep = ("hdr",)
+    events = time_passes(r.graph)
+    reset_counts()
+    frame_nb, stats_nb, k3_frames = [], [], []
+    for _ in range(n_frames):
+        k3_0 = b16ops.launches
+        f0 = time.perf_counter()
+        r.render_frame()
+        torch.cuda.synchronize()
+        frame_nb.append((time.perf_counter() - f0) * 1e3)
+        stats_nb.append(r.stats())
+        k3_frames.append(b16ops.launches - k3_0)
+    launches_nb = counts()
+    hdr = r._model.last_resources["hdr"]
+    png_nb = os.path.join(tempfile.gettempdir(), "chip_smoke_stress_nb_ddgi_1080p.png")
+    r.save_screenshot(png_nb)
+    passes_nb = [p.name for p in r.graph.passes if p.enabled]
+    r.shutdown()
+    pass_ms_nb = {k: median_ms(v) for k, v in events.items()}
+    nb_med = statistics.median(frame_nb[1:])
+    traced = [b - a for a, b in zip([0] + [s_["ddgi_traced_frames"] for s_ in stats_nb],
+                                    [s_["ddgi_traced_frames"] for s_ in stats_nb])]
+    lanes_nb = sum(s_["rt_k3_lanes_ddgi"] for s_ in stats_nb)
+    capped_nb = sum(s_["rt_k3_capped_ddgi"] for s_ in stats_nb)
+    log(f"phase12 normal_basic+ddgi main path stress 1920x1080 x{n_frames}: setup "
+        f"{setup_nb:.1f} s (BVH+beam table+bvh16+light pool {r.bvh_seconds:.1f} s), passes "
+        f"{passes_nb}, frame ms {[round(x, 2) for x in frame_nb]}, median frames 2-{n_frames} "
+        f"{nb_med:.2f} ms, launches {launches_nb}, K3 launches per frame {k3_frames}, DDGI "
+        f"traced frames {traced} (total {stats_nb[-1]['ddgi_traced_frames']}), NEE K3 rays "
+        f"{lanes_nb}, capped {capped_nb} (share {capped_nb / max(lanes_nb, 1):.5f}), png {png_nb}")
+    log(f"phase12 per-pass stream ms (CUDA events, median of frames 2-{n_frames}): "
+        f"{json.dumps(pass_ms_nb)}")
+    assert passes_nb == ["Culling", "Raster", "HZBBuild", "RasterPhase2", "ResolveGBuffer",
+                         "MaskedLayer", "ShadowCSM", "IBL", "DDGI", "DeferredLighting", "Sky",
+                         "Transparent", "TAA", "AutoExposure", "Bloom", "Tonemap"], passes_nb
+    assert bool(torch.isfinite(hdr).all()), "non-finite HDR"
+    assert launches_nb["K1"] >= 3 * n_frames and launches_nb["K5"] >= n_frames, launches_nb
+    assert launches_nb["K2"] == 0 and launches_nb["K4"] == 0, launches_nb
+    assert traced[0] == 1 and all(k >= 2 * t for k, t in zip(k3_frames, traced)), \
+        (k3_frames, traced)
+    del r, hdr
+
+    t0 = time.perf_counter()
+    r = Renderer(Config(scene="stress", width=1920, height=1080, mode="normal_basic",
+                        indirect_mode="ssgi",
+                        cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_nb_ssgi")),
+                 device="cuda")
+    setup_ssgi = time.perf_counter() - t0
+    events = time_passes(r.graph)
+    reset_counts()
+    frame_ssgi = []
+    for _ in range(4):
+        f0 = time.perf_counter()
+        r.render_frame()
+        torch.cuda.synchronize()
+        frame_ssgi.append((time.perf_counter() - f0) * 1e3)
+    launches_ssgi = counts()
+    passes_ssgi = [p.name for p in r.graph.passes if p.enabled]
+    rt_built = r._model.rt is not None
+    r.shutdown()
+    log(f"phase12 normal_basic+ssgi stress 1920x1080 x4: setup {setup_ssgi:.1f} s, frame ms "
+        f"{[round(x, 2) for x in frame_ssgi]}, median frames 2-4 "
+        f"{statistics.median(frame_ssgi[1:]):.2f} ms, launches {launches_ssgi}, RT scene built "
+        f"{rt_built}; per-pass stream ms (median of frames 2-4) "
+        f"{json.dumps({k: median_ms(v) for k, v in events.items()})}")
+    assert "SSGI" in passes_ssgi and "DDGI" not in passes_ssgi, passes_ssgi
+    assert launches_ssgi["K1"] >= 12 and launches_ssgi["K5"] >= 4, launches_ssgi
+    assert launches_ssgi["K3"] == 0 and not rt_built, launches_ssgi
 
     jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not jax_mods, f"the port loaded jax: {jax_mods[:5]}"
@@ -436,11 +594,12 @@ def main():
                       if m == "hobbyrenderer_tpu" or m.startswith("hobbyrenderer_tpu."))
     assert not ref_mods, f"the port loaded the JAX package: {ref_mods[:5]}"
 
-    def entry(name, source, replaces, key, err, ms, plain_ms, bnd, **extra):
+    def entry(name, source, replaces, key, err, ms, plain_ms, bnd, main=None, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches_rx[key], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
-                    launches_simple_path=launches[key], **extra)
+                    launches=(main or launches_rx)[key], max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                    launches_simple_path=launches[key], launches_restir_path=launches_rx[key],
+                    launches_normal_basic=launches_nb[key], **extra)
 
     kernels_line = {"kernels": [
         entry("raster_resolve_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
@@ -455,7 +614,12 @@ def main():
               walks={x["name"]: [x["rays"], x["ms"], x["plain_ms"], x["bound"][0]]
                      for x in k3_rows}),
         entry("beam_any_hit_tiles", "hobbyrenderer_tpu_torch/csrc/beam_any_hit.cu",
-              "hobbyrenderer_tpu/ops/beam.py:68", "K4", k4_err, k4_ms, k4_plain_ms, k4_bound)]}
+              "hobbyrenderer_tpu/ops/beam.py:68", "K4", k4_err, k4_ms, k4_plain_ms, k4_bound),
+        entry("raster_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
+              "hobbyrenderer_tpu/ops/raster_pallas.py:148", "K5", k5_main["err"],
+              k5_main["ms"], k5_main["plain_ms"], k5_main["bound"], main=launches_nb,
+              depth_visid={k: k5_runs[False][k] for k in ("ms", "plain_ms")})]}
+    log(f"chip_smoke total seconds: {time.perf_counter() - t_start:.1f}")
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,8 @@ Usage:
         --device cpu                              # plain PyTorch versions
     python -m hobbyrenderer_tpu_torch --scene stress --frames 8 \
         --direct-mode restir                      # ReSTIR DI + RELAX
+    python -m hobbyrenderer_tpu_torch --scene stress --frames 8 \
+        --mode normal_basic --indirect-mode ddgi  # CSM shadows + DDGI
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ def main(argv=None):
     p.add_argument("--direct-mode", type=str, default="simple",
                    choices=("simple", "restir"))
     p.add_argument("--indirect-mode", type=str, default="none",
-                   help="only 'none' is ported; others raise NotImplementedError")
+                   help="ported: 'none', and 'ssgi' or 'ddgi' with --mode normal_basic; "
+                        "others raise NotImplementedError")
     p.add_argument("--restir-quality", default="balanced",
                    choices=("highperf", "balanced", "highquality"))
     p.add_argument("--denoiser", type=str, default="relax", choices=("relax", "reblur"))

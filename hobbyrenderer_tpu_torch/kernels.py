@@ -1,4 +1,6 @@
-"""Build and bind the package's hand-written CUDA kernels (csrc/*.cu).
+"""Build and bind the package's hand-written CUDA kernels (csrc/*.cu:
+K1 and K5 in raster_resolve.cu, K2 restir_candidates.cu, K3 bvh16_walk.cu,
+K4 beam_any_hit.cu).
 
 The sources have a plain C interface. At first use each is compiled by its
 own ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false`` (all at
@@ -39,6 +41,9 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # records, tile_start, work_slot, depth, visid, attrs, T, tx, stream
     "hr_raster_resolve_tiles": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP),
+    # records, tile_start, work_slot, depth, visid, T, tx, lanes, depth_only,
+    # stream
+    "hr_raster_tiles": (_VP,) * 5 + (_I,) * 4 + (_VP,),
     # rays, table, occ, ovf, T, N, stream
     "hr_beam_any_hit_tiles": (_VP, _VP, _VP, _VP, _I, _I, _VP),
     # flat3, tsel, planes, cam, y, u, v, w_sum, row, Hp, Wp, T, N, frame, y0,

@@ -1,6 +1,6 @@
-"""Deferred rendering, Normal mode with no indirect mode (counterpart of
-hobbyrenderer_tpu/models/deferred.py). With simple direct lighting (the
-default) the frame runs 15 passes:
+"""Deferred rendering, the Normal and NormalBasic modes (counterpart of
+hobbyrenderer_tpu/models/deferred.py). Normal mode with simple direct
+lighting (the default) runs 15 passes on the stress scene:
 
 Culling -> Raster -> HZBBuild -> RasterPhase2 -> ResolveGBuffer ->
 MaskedLayer -> SunShadow -> IBL -> DeferredLighting -> Sky -> Transparent ->
@@ -10,10 +10,16 @@ With ``direct_mode="restir"`` SunShadow is off and RTXDI + Denoise run after
 IBL (16 passes): ReSTIR DI (ops/restir.py) feeds DeferredLighting's direct
 term through the RELAX/REBLUR denoiser (ops/denoise.py).
 
-Raster passes go through the tile-raster kernel (ops/raster_kernel.py),
-SunShadow and the RTXDI winner rays through the any-hit kernel
-(ops/beam.py), RTXDI's candidates through the candidate kernel
-(ops/restir_kernel.py) and its straggler rays through the bvh16 walk
+NormalBasic replaces SunShadow with ShadowCSM (cascaded shadow maps times
+screen-space contact shadows, ops/csm.py and ops/sss.py) and ignores
+``direct_mode``; its ``indirect_mode`` adds DDGI (ops/ddgi.py) or SSGI
+(ops/ssgi.py) before DeferredLighting.
+
+Raster passes go through the tile-raster kernel K1 (ops/raster_kernel.py),
+the shadow atlas through its depth-only sibling K5, SunShadow and the RTXDI
+winner rays through the any-hit kernel K4 (ops/beam.py), RTXDI's candidates
+through the candidate kernel K2 (ops/restir_kernel.py), and its straggler
+rays and the DDGI probe and NEE rays through the bvh16 walk K3
 (ops/bvh16.py)."""
 
 from __future__ import annotations
@@ -23,10 +29,13 @@ from typing import Dict
 import numpy as np
 import torch
 
+from hobbyrenderer_tpu_torch.config import RenderingMode
 from hobbyrenderer_tpu_torch.scene.cooker import MESHLET_MAX_TRIS
 from hobbyrenderer_tpu_torch.graph.rendergraph import FrameContext, RenderGraph, render_pass
 from hobbyrenderer_tpu_torch.ops import beam as beamops
+from hobbyrenderer_tpu_torch.ops import csm as csmops
 from hobbyrenderer_tpu_torch.ops import culling as cullops
+from hobbyrenderer_tpu_torch.ops import ddgi as ddgiops
 from hobbyrenderer_tpu_torch.ops import denoise as dnops
 from hobbyrenderer_tpu_torch.ops import hzb as hzbops
 from hobbyrenderer_tpu_torch.ops import ibl as iblops
@@ -36,9 +45,12 @@ from hobbyrenderer_tpu_torch.ops import restir as restirops
 from hobbyrenderer_tpu_torch.ops import sampling as smp
 from hobbyrenderer_tpu_torch.ops import shading as shadeops
 from hobbyrenderer_tpu_torch.ops import sky as skyops
+from hobbyrenderer_tpu_torch.ops import ssgi as ssgiops
+from hobbyrenderer_tpu_torch.ops import sss as sssops
 from hobbyrenderer_tpu_torch.ops import taa as taaops
 from hobbyrenderer_tpu_torch.ops import transparent as transops
 from hobbyrenderer_tpu_torch.ops.resize import resize_bilinear
+from hobbyrenderer_tpu_torch.ops.upsample import joint_bilateral_upsample
 from hobbyrenderer_tpu_torch.ops.restir_presets import get_preset
 from hobbyrenderer_tpu_torch.utils.rng import pcg3d, uniform_from_bits
 
@@ -53,17 +65,24 @@ def _scene_sun_dir(ctx):
 
 
 def build_deferred_graph(width: int, height: int, visible_capacity: int,
+                         mode: str = RenderingMode.NORMAL,
                          has_masked: bool = True, has_transparent: bool = True,
                          masked_capacity: int = None,
-                         transparent_capacity: int = None,
+                         transparent_capacity: int = None, *,
+                         shadow_capacity: int, scene_radius: float,
                          shadow_scale: int = 2, direct_mode: str = "simple",
+                         indirect_mode: str = "none",
                          restir_quality: str = "balanced",
                          denoiser_profile: str = "relax") -> RenderGraph:
     g = RenderGraph()
-    use_restir = direct_mode == "restir"
+    use_restir = direct_mode == "restir" and mode == RenderingMode.NORMAL
+    use_ddgi = indirect_mode == "ddgi"
+    use_ssgi = indirect_mode == "ssgi"
     rq = get_preset(restir_quality)
     masked_capacity = max(masked_capacity or visible_capacity, 1)
     transparent_capacity = max(transparent_capacity or visible_capacity, 1)
+    # the CSM range follows the scene's bounding sphere
+    csm_max_distance = float(min(max(2.0 * scene_radius, 20.0), 400.0))
     h0, w0, hzb_levels = hzbops.hzb_sizes(width, height)
     hzb_eff = hzbops.hzb_effective_size(width, height)
 
@@ -202,8 +221,29 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
             vis = resize_bilinear(vis, height, width)
         res["sun_shadow"] = vis
 
-    if use_restir:
+    if use_restir or mode != RenderingMode.NORMAL:
         g.get("SunShadow").enabled = False
+
+    @g.add
+    @render_pass("ShadowCSM", reads=("gbuffer",), writes=("sun_shadow",))
+    def _shadow_csm(ctx, res):
+        """NormalBasic sun shadows: the 4-cascade depth atlas (one K5 call),
+        a half-res PCF mask bilinearly upsampled, times screen-space contact
+        shadows."""
+        gb = res["gbuffer"]
+        sun_dir = _scene_sun_dir(ctx)
+        data = csmops.render_cascades(ctx.gpu, ctx.vc, sun_dir, shadow_capacity,
+                                      max_distance=csm_max_distance)
+        s = 2
+        sh, sw = height // s, width // s
+        mask = csmops.csm_shadow_mask(data, ctx.vc, gb.world_pos[::s, ::s][:sh, :sw],
+                                      gb.geo_normal[::s, ::s][:sh, :sw],
+                                      gb.valid[::s, ::s][:sh, :sw], sun_dir)
+        mask = resize_bilinear(mask, height, width)
+        res["sun_shadow"] = mask * sssops.screen_space_shadows(gb, ctx.vc, sun_dir)
+
+    if mode != RenderingMode.NORMAL_BASIC:
+        g.get("ShadowCSM").enabled = False
 
     @g.add
     @render_pass("IBL", reads=(), writes=("sky_irradiance",))
@@ -248,9 +288,62 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         g.get("Denoise").enabled = False
 
     @g.add
+    @render_pass("DDGI", reads=("gbuffer", "ddgi_volume"),
+                 writes=("ddgi_indirect", "ddgi_volume", "ddgi_traced",
+                         "rt_k3_lanes_ddgi", "rt_k3_capped_ddgi"),
+                 persistent=("ddgi_volume",))
+    def _ddgi(ctx, res):
+        """DDGI probe volume: the probe-ray update (when the volume still
+        changes, and every 8th frame), then a quarter-res irradiance query,
+        depth/normal-guided upsampling."""
+        gb = res["gbuffer"]
+        vol = res["ddgi_volume"]
+        frame = ctx.vc["frame_index"]
+        # the gate reads the device's variability back to the host: one
+        # sync per frame, skipped on the keep-alive frames
+        traced = frame % 8 == 0 or bool(vol.variability > 0.01)
+        so = {}
+        if traced:
+            vol = ddgiops.ddgi_update(vol, ctx.gpu, ctx.rt, ctx.settings, frame,
+                                      stats_out=so)
+        res["ddgi_traced"] = int(traced)
+        zero = torch.zeros((), dtype=torch.int64, device=gb.depth.device)
+        res["rt_k3_lanes_ddgi"] = so.get("k3_lanes", zero)
+        res["rt_k3_capped_ddgi"] = so.get("k3_capped", zero)
+        s = 4
+        sh, sw = height // s, width // s
+
+        def sub(img):
+            return img[::s, ::s][:sh, :sw]
+        E = ddgiops.ddgi_query(vol, sub(gb.world_pos).reshape(-1, 3),
+                               sub(gb.normal).reshape(-1, 3)).reshape(sh, sw, 3)
+        E = joint_bilateral_upsample(E, sub(gb.depth), sub(gb.normal), sub(gb.valid),
+                                     gb.depth, gb.normal, s)
+        res["ddgi_indirect"] = torch.where(gb.valid[..., None], (gb.albedo / np.pi) * E, 0.0)
+        res["ddgi_volume"] = vol
+
+    if not use_ddgi:
+        g.get("DDGI").enabled = False
+
+    @g.add
+    @render_pass("SSGI", reads=("gbuffer", "taa_history", "ssgi_state"),
+                 writes=("ssgi_indirect", "ssgi_state"), persistent=("ssgi_state",))
+    def _ssgi(ctx, res):
+        """Screen-space GI: a half-res march against last frame's lit HDR,
+        then the RELAX chain."""
+        gb = res["gbuffer"]
+        raw = ssgiops.ssgi_half_res(gb, ctx.vc, res["taa_history"], ctx.vc["frame_index"])
+        res["ssgi_indirect"], res["ssgi_state"] = dnops.denoise(raw, gb, res["ssgi_state"])
+
+    if not use_ssgi:
+        g.get("SSGI").enabled = False
+
+    @g.add
     @render_pass("DeferredLighting",
                  reads=("gbuffer", "sky_irradiance")
-                 + (("restir_direct",) if use_restir else ("sun_shadow",)),
+                 + (("restir_direct",) if use_restir else ("sun_shadow",))
+                 + (("ddgi_indirect",) if use_ddgi else ())
+                 + (("ssgi_indirect",) if use_ssgi else ()),
                  writes=("hdr",))
     def _deferred(ctx, res):
         gb = res["gbuffer"]
@@ -273,6 +366,10 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
                                      metal, rough, _scene_sun_dir(ctx), ctx.settings,
                                      intensity=ibl_scale)
         hdr = direct + ambient + gb.emissive
+        if use_ssgi:
+            hdr = hdr + res["ssgi_indirect"]
+        if use_ddgi:
+            hdr = hdr + res["ddgi_indirect"]
         res["hdr"] = torch.where(gb.valid[..., None], hdr, 0.0)
 
     @g.add
@@ -333,10 +430,12 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
     return g
 
 
-def initial_frame_state(width: int, height: int, device,
-                        direct_mode: str = "simple") -> Dict[str, object]:
-    """Persistent resources seed: exposure, HZB, TAA history, and under
-    ReSTIR the light reservoirs and the denoiser history."""
+def initial_frame_state(width: int, height: int, device, use_restir: bool = False,
+                        indirect_mode: str = "none",
+                        scene_bounds=None) -> Dict[str, object]:
+    """Persistent resources seed: exposure, HZB, TAA history; under ReSTIR
+    the light reservoirs and the denoiser history; the SSGI denoiser
+    history or the DDGI volume (fitted to ``scene_bounds``)."""
     h0, w0, levels = hzbops.hzb_sizes(width, height)
     state = {
         "exposure": torch.tensor(1.0, dtype=torch.float32, device=device),
@@ -345,9 +444,14 @@ def initial_frame_state(width: int, height: int, device,
                                    device=device),
         "taa_valid": False,
     }
-    if direct_mode == "restir":
+    if use_restir:
         state["restir_reservoir"] = restirops.reservoir_init(height, width, device)
         state["denoise_state"] = dnops.denoise_init(height, width, device)
+    if indirect_mode == "ssgi":
+        state["ssgi_state"] = dnops.denoise_init(height, width, device)
+    if indirect_mode == "ddgi":
+        lo, hi = scene_bounds
+        state["ddgi_volume"] = ddgiops.ddgi_init(lo, hi, device)
     return state
 
 
@@ -355,31 +459,42 @@ class DeferredRenderer:
     """Builds the graph and carries the persistent FrameState across frames."""
 
     def __init__(self, gpu, width: int, height: int, rt, shadow_scale: int,
-                 direct_mode: str = "simple", restir_quality: str = "balanced",
+                 mode: str = RenderingMode.NORMAL, direct_mode: str = "simple",
+                 indirect_mode: str = "none", restir_quality: str = "balanced",
                  denoiser_profile: str = "relax"):
         self.width, self.height = width, height
         self.rt = rt
-        self.use_restir = direct_mode == "restir"
+        self.use_restir = direct_mode == "restir" and mode == RenderingMode.NORMAL
+        self.use_ddgi = indirect_mode == "ddgi"
         m = gpu.meta
         cap = max(int(gpu.lod0_pair_capacity), 1)
         self.graph = build_deferred_graph(
-            width, height, cap, has_masked=m["has_masked"],
+            width, height, cap, mode=mode, has_masked=m["has_masked"],
             has_transparent=m["has_transparent"],
             masked_capacity=gpu.bucket_pair_capacity((1,)),
             transparent_capacity=gpu.bucket_pair_capacity((2,)),
+            shadow_capacity=gpu.shadow_pair_capacity(
+                csmops.CASCADE_LOD_BIAS[:csmops.NUM_CASCADES]),
             shadow_scale=shadow_scale, direct_mode=direct_mode,
-            restir_quality=restir_quality, denoiser_profile=denoiser_profile)
-        self.state = initial_frame_state(width, height, gpu.device, direct_mode)
+            indirect_mode=indirect_mode, restir_quality=restir_quality,
+            denoiser_profile=denoiser_profile, scene_radius=m["scene_radius"])
+        self.state = initial_frame_state(width, height, gpu.device, self.use_restir,
+                                         indirect_mode, m["scene_bounds"])
         self.last_stats = {}
         self.keep = ()              # extra resource names to keep per frame
         self.last_resources = {}
+        self.ddgi_traced_frames = 0
 
     def render(self, gpu, vc, settings, dt: float = 1 / 60):
         ctx = FrameContext(gpu=gpu, vc=vc, settings=settings, dt=dt, rt=self.rt)
         outputs = ["ldr", "raster_overflow", "visible_count", "occluded_count",
                    "phase2_count", "exposure"]
-        outputs += (["rt_overflow_di", "rt_k3_lanes_di", "rt_k3_capped_di"]
-                    if self.use_restir else ["rt_overflow_sun"])
+        if self.use_restir:
+            outputs += ["rt_overflow_di", "rt_k3_lanes_di", "rt_k3_capped_di"]
+        elif self.graph.get("SunShadow").enabled:
+            outputs += ["rt_overflow_sun"]
+        if self.use_ddgi:
+            outputs += ["ddgi_traced", "rt_k3_lanes_ddgi", "rt_k3_capped_ddgi"]
         o = self.graph.execute(ctx, self.state, outputs=outputs + list(self.keep))
         self.last_resources = {k: o[k] for k in self.keep}
         self.last_stats = {"raster_overflow": o["raster_overflow"],
@@ -393,6 +508,13 @@ class DeferredRenderer:
             self.last_stats.update(rt_overflow_di=o["rt_overflow_di"],
                                    rt_k3_lanes_di=o["rt_k3_lanes_di"],
                                    rt_k3_capped_di=o["rt_k3_capped_di"])
-        else:
+        elif "rt_overflow_sun" in o:
             self.last_stats["rt_overflow_tiles"] = o["rt_overflow_sun"]
+        if self.use_ddgi:
+            # traced frames so far; the NEE shadow rays of this frame's
+            # update in K3 and those the step budget cut short
+            self.ddgi_traced_frames += o["ddgi_traced"]
+            self.last_stats.update(ddgi_traced_frames=self.ddgi_traced_frames,
+                                   rt_k3_lanes_ddgi=o["rt_k3_lanes_ddgi"],
+                                   rt_k3_capped_ddgi=o["rt_k3_capped_ddgi"])
         return o["ldr"]

@@ -1,11 +1,13 @@
-"""Ray-tracing scene snapshot for the traced passes (SunShadow, RTXDI).
+"""Ray-tracing scene snapshot for the traced passes (SunShadow, RTXDI,
+DDGI).
 
 Counterpart of hobbyrenderer_tpu/models/pathtracer.py::_subdivide_large /
-build_scene_rt (pathtracer.py:113-157), cut down to what those passes need:
-the LOD0 world-space triangles (oversized ones subdivided), their 4-wide
-BVH and beam table (K4), the split tables, the 16-wide BVH (K3), the light
-pool and the emissive index. The per-triangle attribute tables belong to
-the path tracer's slice."""
+build_scene_rt / _fetch_hit_attrs (pathtracer.py:113-157, 203-236), cut
+down to what those passes need: the LOD0 world-space triangles (oversized
+ones subdivided), their 4-wide BVH and beam table (K4), the split tables,
+the per-triangle vertex / instance / material tables, and with the
+uploaded scene the 16-wide BVH (K3), the light pool and the emissive
+index. ``fetch_hit_attrs`` interpolates a hit's attributes from them."""
 
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from hobbyrenderer_tpu_torch.ops import beam as beamops
 from hobbyrenderer_tpu_torch.ops import bvh as bvhops
 from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
 from hobbyrenderer_tpu_torch.ops import lights as lightops
+from hobbyrenderer_tpu_torch.utils import tmath as tm
 
 
 class SceneRT(NamedTuple):
@@ -30,9 +33,13 @@ class SceneRT(NamedTuple):
     bvh16: b16ops.BVH16 = None   # 16-wide BVH over the split triangles
     lights: lightops.LightPool = None
     em_index: torch.Tensor = None  # (T,) original tri -> pool emissive entry (-1 none)
+    tri_gv: torch.Tensor = None    # (T, 3) global vertex ids of the original tris
+    tri_inst: torch.Tensor = None  # (T,) instance id
+    tri_mat: torch.Tensor = None   # (T,) material id
 
 
 RT_FIELDS = ("btable", "split_to_orig", "split_bary", "split_world0")
+TABLE_FIELDS = ("tri_gv", "tri_inst", "tri_mat")
 POOL_FIELDS = ("em_v0", "em_e1", "em_e2", "em_rad", "em_orig", "em_scale",
                "power_cdf", "power_pdf", "packed")
 
@@ -73,19 +80,26 @@ def _subdivide_large(tri_verts: np.ndarray, max_rounds: int = 4,
 
 def build_scene_rt(scene, device, gpu=None) -> SceneRT:
     """Host-side flatten of every instance's LOD0 triangles to world space,
-    BVH + beam table build, upload to ``device``. With the uploaded scene
-    ``gpu`` (the ReSTIR frame), also the 16-wide BVH, the light pool and
-    the emissive index."""
-    tris = []
-    for I in scene.instances:
+    BVH + beam table and per-triangle tables, upload to ``device``. With
+    the uploaded scene ``gpu`` (for RTXDI and DDGI), also the 16-wide BVH,
+    the light pool and the emissive index."""
+    tris, gvs, insts, mats = [], [], [], []
+    voff = np.cumsum([0] + [m.num_vertices for m in scene.meshes])
+    for i, I in enumerate(scene.instances):
         mesh = scene.meshes[I.prim]
+        idx = mesh.lods[0].indices
         pw = hm.transform_points(scene.nodes[I.node].world, mesh.positions)
-        tris.append(pw[mesh.lods[0].indices])
+        tris.append(pw[idx])
+        gvs.append(idx.astype(np.int32) + voff[I.prim])
+        insts.append(np.full(idx.shape[0], i, np.int32))
+        mats.append(np.full(idx.shape[0], I.material, np.int32))
     tri_verts = np.concatenate(tris, 0).astype(np.float32)
     split_verts, split_to_orig, split_bary = _subdivide_large(tri_verts)
     bvh = bvhops.build_bvh(split_verts)
     host = dict(btable=beamops.beam_table(bvh.table), split_to_orig=split_to_orig,
-                split_bary=split_bary, split_world0=split_verts)
+                split_bary=split_bary, split_world0=split_verts,
+                tri_gv=np.concatenate(gvs, 0), tri_inst=np.concatenate(insts, 0),
+                tri_mat=np.concatenate(mats, 0))
     if gpu is None:
         return scene_rt_from_numpy(host, device, bvh=bvh)
     host["bvh16"] = b16ops.build_bvh16_arrays(split_verts)
@@ -98,9 +112,10 @@ def build_scene_rt(scene, device, gpu=None) -> SceneRT:
     return rt._replace(lights=pool, em_index=torch.as_tensor(em_index, device=device))
 
 
-def scene_rt_from_numpy(d: Dict[str, Any], device="cpu", bvh=None) -> SceneRT:
+def scene_rt_from_numpy(d: Dict[str, Any], device, bvh=None) -> SceneRT:
     """A SceneRT as numpy (``{name: array}``, the JAX SceneRT's leaves:
-    btable, split_to_orig, split_bary, split_world0; optionally bvh_table /
+    btable, split_to_orig, split_bary, split_world0; optionally tri_gv /
+    tri_inst / tri_mat, bvh_table /
     bvh_order / bvh_root_box; ``bvh16`` as a dict of the JAX BVH16's table
     (transposed (128, I+L) as the JAX package stores it, or row-major),
     order, root_box, recs, slot_of; ``lights`` as a dict of the LightPool's
@@ -116,7 +131,7 @@ def scene_rt_from_numpy(d: Dict[str, Any], device="cpu", bvh=None) -> SceneRT:
                          order=np.asarray(d["bvh_order"], np.int32),
                          root_box=np.asarray(d["bvh_root_box"], np.float32),
                          num_tris=int(np.asarray(d["split_to_orig"]).shape[0]))
-    extra = {}
+    extra = {k: t(d[k]) for k in TABLE_FIELDS if d.get(k) is not None}
     if d.get("bvh16") is not None:
         b = dict(d["bvh16"])
         if b["table"].shape[0] == b16ops.ROW_W and b["table"].shape[1] != b16ops.ROW_W:
@@ -130,3 +145,31 @@ def scene_rt_from_numpy(d: Dict[str, Any], device="cpu", bvh=None) -> SceneRT:
             **{k: t(lp[k]) for k in POOL_FIELDS})
         extra["em_index"] = t(d["em_index"])
     return SceneRT(bvh=bvh, **{k: t(d[k]) for k in RT_FIELDS}, **extra)
+
+
+def fetch_hit_attrs(gpu, rt: SceneRT, hit, o, d):
+    """Attributes at closest hits: world position, shading normal, geometric
+    normal, uv, material and instance. A split triangle's hit maps back to
+    its original triangle and barycentrics; both normals are flipped toward
+    the incoming ray (two-sided shading)."""
+    stri = torch.clamp(hit.tri, min=0).to(torch.int64)
+    tri = rt.split_to_orig[stri]
+    sb = rt.split_bary[stri]                                    # (R, 3, 2)
+    uv_orig = (sb[:, 0] * (1.0 - hit.u - hit.v)[:, None]
+               + sb[:, 1] * hit.u[:, None] + sb[:, 2] * hit.v[:, None])
+    u, v = uv_orig[:, 0], uv_orig[:, 1]
+    gv = rt.tri_gv[tri]
+    inst = rt.tri_inst[tri]
+    mat = rt.tri_mat[tri]
+    b = torch.stack([1.0 - u - v, u, v], -1)
+    n_obj, _s = tm.unpack_normal_oct(gpu.vnormals[gv])          # (R, 3, 3)
+    n_w = torch.einsum("rij,rvj->rvi", gpu.inst_normal_mat[inst], n_obj)
+    n = tm.normalize(torch.einsum("rv,rvi->ri", b, n_w))
+    W = gpu.inst_transform[inst]
+    p_w = torch.einsum("rij,rvj->rvi", W[:, :3, :3], gpu.positions[gv]) + W[:, None, :3, 3]
+    gn = tm.normalize(tm.cross(p_w[:, 1] - p_w[:, 0], p_w[:, 2] - p_w[:, 0]))
+    pos = o + d * hit.t[..., None]
+    uv = torch.einsum("rv,rvi->ri", b, tm.unpack_uv_half2(gpu.vuvs[gv]))
+    gn = torch.where(torch.sum(gn * d, -1, keepdim=True) > 0, -gn, gn)
+    n = torch.where(torch.sum(n * gn, -1, keepdim=True) < 0, -n, n)
+    return pos, n, gn, uv, mat, inst

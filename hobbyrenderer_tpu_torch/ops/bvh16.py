@@ -17,7 +17,7 @@ count-trailing-zeros, best_t tightening, Möller-Trumbore over the leaf's
 records, any-hit exit on the first hit, and an iteration cap ``max_steps``.
 
 ``bvh16_walk`` launches csrc/bvh16_walk.cu for CUDA tensors and runs
-``bvh16_walk_reference`` (a lockstep wavefront over all rays, single phase)
+``bvh16_walk_reference`` (a lockstep wavefront over the live rays, one phase)
 for CPU tensors; nothing else chooses. The JAX walk's phased compaction
 (PHASES16) and its bf16 one-hot MXU interior fetch are TPU scaffolding and
 are not ported."""
@@ -134,7 +134,7 @@ def bvh16_from_numpy(d: dict, num_tris: int, device) -> BVH16:
                                        ("table", "order", "root_box", "recs", "slot_of")})
 
 
-def build_bvh16(tri_verts: np.ndarray, device="cpu") -> BVH16:
+def build_bvh16(tri_verts: np.ndarray, device) -> BVH16:
     return bvh16_from_numpy(build_bvh16_arrays(tri_verts), tri_verts.shape[0], device)
 
 
@@ -201,41 +201,46 @@ def bvh16_walk_reference(table, o, d, t_max, any_hit: bool,
                          max_steps: int = UNCAPPED_STEPS, t_min: float = 1e-4,
                          return_visited: bool = False):
     """Plain PyTorch version: the lockstep wavefront of the JAX
-    ``_traverse16`` (one phase, every ray every iteration, finished rays
-    masked), with each product and sum rounded as a separate op. With
+    ``_traverse16`` (one phase), each step over the rays still walking
+    (finished rays drop out of the wavefront; each ray's arithmetic is the
+    same), with each product and sum rounded as a separate op. With
     ``return_visited`` it also returns the (I+L,) bool rows some ray read:
     the kernel reads the same rows (the byte term of its bound)."""
     R = o.shape[0]
     dev = o.device
     I, M = _dims(table)
     K = LEAF16
-    inv = safe_inv_dir(d)
-    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
-    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
-    ix, iy, iz = inv[:, 0], inv[:, 1], inv[:, 2]
-    cur = torch.zeros(R, dtype=torch.int64, device=dev)
-    mask = torch.zeros((R, M), dtype=torch.int64, device=dev)
-    live = torch.ones(R, dtype=torch.bool, device=dev)
-    best_t = t_max.clone()
-    best_tri = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    inv_all = safe_inv_dir(d)
+    cur_all = torch.zeros(R, dtype=torch.int64, device=dev)
+    mask_all = torch.zeros((R, M), dtype=torch.int64, device=dev)
+    live_all = torch.ones(R, dtype=torch.bool, device=dev)
+    best_t_all = t_max.clone()
+    best_tri_all = torch.full((R,), -1, dtype=torch.int64, device=dev)
     steps = torch.zeros(R, dtype=torch.int32, device=dev)
     ki = torch.arange(M, device=dev)[None, :]
     chw = (1 << torch.arange(16, device=dev))[:, None]
     ths = [(16 ** (k + 1) - 1) // 15 for k in range(M)]   # first id of level k+1
     visited = torch.zeros(table.shape[0], dtype=torch.bool, device=dev)
     for _ in range(max_steps):
-        if not bool(live.any()):
+        idx = torch.nonzero(live_all)[:, 0]
+        n = idx.shape[0]
+        if n == 0:
             break
+        cur, mask = cur_all[idx], mask_all[idx]
+        best_t, best_tri = best_t_all[idx], best_tri_all[idx]
+        ox, oy, oz = o[idx, 0], o[idx, 1], o[idx, 2]
+        dx, dy, dz = d[idx, 0], d[idx, 1], d[idx, 2]
+        ix, iy, iz = inv_all[idx, 0], inv_all[idx, 1], inv_all[idx, 2]
         lvl = sum((cur >= th).to(torch.int64) for th in ths)
-        do = live & (cur >= 0)
-        steps += do.to(torch.int32)
+        do = cur >= 0
+        steps[idx] += do.to(torch.int32)
         if return_visited:
             visited[cur[do]] = True
-        cols = table[torch.clamp(cur, min=0)].T                    # (128, R)
+        cols = table[torch.clamp(cur, min=0)].T                    # (128, n)
         is_leaf = cur >= I
 
-        # leaf: K triangle tests, (K, R)
-        rec = cols[:10 * K].reshape(K, 10, R)
+        # leaf: K triangle tests, (K, n)
+        rec = cols[:10 * K].reshape(K, 10, n)
         v0x, v0y, v0z = rec[:, 0], rec[:, 1], rec[:, 2]
         e1x, e1y, e1z = rec[:, 3], rec[:, 4], rec[:, 5]
         e2x, e2y, e2z = rec[:, 6], rec[:, 7], rec[:, 8]
@@ -263,8 +268,8 @@ def bvh16_walk_reference(table, o, d, t_max, any_hit: bool,
                                best_tri)
         best_t = torch.where(lhit, tmin_leaf, best_t)
 
-        # interior: 16 slab tests, (16, R)
-        box = cols[:96].reshape(16, 6, R)
+        # interior: 16 slab tests, (16, n)
+        box = cols[:96].reshape(16, 6, n)
         lox, loy, loz = box[:, 0], box[:, 1], box[:, 2]
         hix, hiy, hiz = box[:, 3], box[:, 4], box[:, 5]
         t0x, t1x = (lox - ox) * ix, (hix - ox) * ix
@@ -306,12 +311,14 @@ def bvh16_walk_reference(table, o, d, t_max, any_hit: bool,
         cur = torch.where(descend, 16 * cur + 1 + near,
                           torch.where(pop, 16 * a_k + 1 + cbit,
                                       torch.where(need_pop, -1, cur)))
-        live = live & ~(need_pop & ~has_pend)
+        live = ~(need_pop & ~has_pend)
         if any_hit:
             live = live & ~(best_tri >= 0)
+        cur_all[idx], mask_all[idx], live_all[idx] = cur, mask, live
+        best_t_all[idx], best_tri_all[idx] = best_t, best_tri
     if return_visited:
-        return best_t, best_tri.to(torch.int32), steps, visited
-    return best_t, best_tri.to(torch.int32), steps
+        return best_t_all, best_tri_all.to(torch.int32), steps, visited
+    return best_t_all, best_tri_all.to(torch.int32), steps
 
 
 # ---------------------------------------------------------------------------

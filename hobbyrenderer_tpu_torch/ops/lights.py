@@ -184,11 +184,18 @@ def light_incident_rows(rows, uv, pos):
     return L, rad, torch.where(is_em, dist_e, dist_a)
 
 
-def presample_lights(pool: LightPool, frame: int):
+def pool_light_incident_packed(pool: LightPool, li, uv, pos):
+    """Incident (L, radiance, dist) of pool lights ``li`` at ``pos`` from
+    one packed-row gather per lane (see light_incident_rows)."""
+    N = pool.packed.shape[0]
+    return light_incident_rows(pool.packed[torch.clamp(li, 0, N - 1)], uv, pos)
+
+
+def presample_lights(pool: LightPool, frame: int, n_tiles: int = PRESAMPLE_TILES,
+                     tile_size: int = PRESAMPLE_TILE_SIZE):
     """Per-frame RIS presampling: (ids (T, S) int64, inv_pdf (T, S) f32),
     ids drawn proportional to power (-1 when the pool is empty)."""
     dev = pool.power_cdf.device
-    n_tiles, tile_size = PRESAMPLE_TILES, PRESAMPLE_TILE_SIZE
     slot = torch.arange(n_tiles * tile_size, dtype=torch.int64, device=dev)
     bits = pcg3d(torch.stack([slot, torch.full_like(slot, frame),
                               torch.full_like(slot, 7)], -1))

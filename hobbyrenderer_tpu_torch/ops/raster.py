@@ -3,9 +3,11 @@
 Counterpart of hobbyrenderer_tpu/ops/raster.py, kernel branch only: visible
 meshlet slots are transformed, expanded to per-triangle plane records, binned
 into a tile-sorted (tile, 32-triangle chunk) worklist, and rasterized with
-the fused tile-raster + attribute-resolve kernel (ops/raster_kernel.py). The
-capacities, the worklist order and the visid encoding (slot * 96 + tri) are
-the JAX package's, so visids compare across the two packages."""
+the fused tile-raster + attribute-resolve kernel (K1, ops/raster_kernel.py).
+The cascaded-shadow atlas (``rasterize_shadow_atlas``) goes the same way
+through the depth-only tile raster (K5). The capacities, the worklist order
+and the visid encoding (slot * 96 + tri) are the JAX package's, so visids
+compare across the two packages."""
 
 from __future__ import annotations
 
@@ -245,6 +247,68 @@ def rasterize(gpu, vc, slots, width: int, height: int):
     out = RasterOutput(depth_img[:height, :width],
                        vis_img[:height, :width].to(torch.int64), overflow)
     return out, attr_img
+
+
+def rasterize_shadow_atlas(gpu, vps, slots, res: int):
+    """Depth-only raster of N light views into one vertical atlas, one K5
+    call: a slot encodes (view, pair) as ``view * num_pairs + pair``, its
+    meshlet is projected with the view's matrix and offset by ``view * res``
+    rows, and the tile worklist spans the (N * res, res) target.
+
+    vps (N, 4, 4) light view-proj matrices; slots (C,) int64 compacted
+    (view, pair) ids (-1 padded). Returns depth (N, res, res), reversed-Z."""
+    n_views = vps.shape[0]
+    D = gpu.pair_inst.shape[0]
+    C = slots.shape[0]
+    slot_valid = slots >= 0
+    s = torch.where(slot_valid, slots, 0)
+    view_i = s // D
+    pair = s % D
+    inst = gpu.pair_inst[pair]
+    ml = gpu.pair_meshlet[pair]
+    vcnt = gpu.ml_vert_count[ml]
+    lanes = torch.arange(MESHLET_MAX_VERTS, device=slots.device)[None, :]
+    vert_valid = lanes < vcnt[:, None]
+    p_obj = gpu.ml_pos[ml]
+    W = gpu.inst_transform[inst]
+    p_world = torch.einsum("cij,cvj->cvi", W[:, :3, :3], p_obj) + W[:, None, :3, 3]
+    VP = vps[view_i]
+    clip = torch.einsum("cij,cvj->cvi", VP[:, :3, :3], p_world) + VP[:, None, :3, 3]
+    w = torch.einsum("cj,cvj->cv", VP[:, 3, :3], p_world) + VP[:, 3, 3][:, None]
+    w_safe = torch.where(w > 1e-6, w, 1.0)
+    ndc = clip / w_safe[..., None]
+    sx = (ndc[..., 0] * 0.5 + 0.5) * res
+    sy = (0.5 - ndc[..., 1] * 0.5) * res + (view_i * res)[:, None].to(torch.float32)
+    screen = torch.stack([sx, sy], -1)
+    vert_ok = vert_valid & (w > 1e-6)
+
+    lt, tri_valid = _tri_onehot(gpu, ml, slot_valid)
+    tri_feats = _tri_expand(lt, torch.cat(
+        [screen, ndc[..., 2:3], vert_ok.to(torch.float32)[..., None]], -1))
+    tv = tri_feats[..., 0:2]
+    tz = tri_feats[..., 2]
+    tok = (tri_feats[..., 3] > 0.5).all(-1) & tri_valid           # double-sided
+    e1 = tv[:, :, 1] - tv[:, :, 0]
+    e2 = tv[:, :, 2] - tv[:, :, 0]
+    area2 = e1[..., 0] * e2[..., 1] - e1[..., 1] * e2[..., 0]
+    nondegen = torch.abs(area2) > 1e-12
+    tok = tok & nondegen
+    inv_a2 = torch.where(nondegen, 1.0 / area2, 0.0)
+    coeff = _tri_affine_coeffs(tv, tz, inv_a2, tok)
+
+    tx = res // TILE
+    ty = n_views * res // TILE
+    tri_cnt = torch.where(slot_valid, gpu.ml_tri_count[ml], 1)
+    slot_chunks = torch.clamp((tri_cnt + rk.TRI_CHUNK - 1) // rk.TRI_CHUNK, 1, rk.N_CHUNKS)
+    work_tile, work_slot, _count, _overflow = build_worklist(
+        screen, vert_ok, slot_valid, res, n_views * res, 2 * max(8 * C, 4096),
+        sub_count=slot_chunks, n_sub=rk.N_CHUNKS)
+    records = rk.build_tri_records(coeff)
+    records = records.reshape(-1, rk.TRI_CHUNK, records.shape[-1])
+    depth_t, _vis = rk.raster_tiles(records, work_tile, work_slot, tiles=tx * ty, tx=tx,
+                                    depth_only=True)
+    depth = depth_t.reshape(ty, tx, TILE, TILE).permute(0, 2, 1, 3).reshape(ty * TILE, res)
+    return depth.reshape(n_views, res, res)
 
 
 def resolve_gbuffer(gpu, vc, raster: RasterOutput, attr_img,

@@ -1,10 +1,13 @@
-"""Tile raster + fused attribute resolve: record builders, the CUDA kernel's
-wrapper and its plain PyTorch version.
+"""Tile rasters: record builders, the CUDA kernels' wrappers and their
+plain PyTorch versions.
 
-Counterpart of hobbyrenderer_tpu/ops/raster_pallas.py (K1,
-raster_resolve_tiles). The kernel source is csrc/raster_resolve.cu.
-``raster_resolve_tiles`` launches the kernel for CUDA tensors and runs
-``raster_resolve_tiles_reference`` for CPU tensors; nothing else chooses."""
+Counterpart of hobbyrenderer_tpu/ops/raster_pallas.py: K1
+(raster_resolve_tiles, raster + fused attribute resolve) and K5
+(raster_tiles, depth and winner id only; the shadow atlas runs it depth
+only). Both kernels are in csrc/raster_resolve.cu and share loop 1.
+``raster_resolve_tiles`` and ``raster_tiles`` launch their kernel for CUDA
+tensors and run ``raster_resolve_tiles_reference`` /
+``raster_tiles_reference`` for CPU tensors; nothing else chooses."""
 
 from __future__ import annotations
 
@@ -18,10 +21,14 @@ MAX_TRIS = 96
 TRI_CHUNK = 32
 N_CHUNKS = MAX_TRIS // TRI_CHUNK
 REC_LANES = 128
+# depth records: the 9 raster-plane lanes padded to 16 (the TPU pads to 128
+# for its DMA alignment; no result depends on the padding)
+REC_LANES_DEPTH = 16
 ATTR_ROWS = 16
-REF_ITEM_BATCH = 256    # worklist items per step of the plain version
+REF_ITEM_BATCH = 256    # worklist items per step of the plain versions
 
-launches = 0      # kernel launches (CPU reference calls are not counted)
+launches = 0        # K1 launches (CPU reference calls are not counted)
+tiles_launches = 0  # K5 launches
 
 
 def _raster_body(coeff):
@@ -31,6 +38,15 @@ def _raster_body(coeff):
     body = torch.where(ok, coeff[..., 0:9], 0.0)
     l1c = torch.where(ok[..., 0], body[..., 2], -1e9)
     return torch.cat([body[..., :2], l1c[..., None], body[..., 3:]], -1)
+
+
+def build_tri_records(coeff):
+    """(C, 96, 10) affine coeffs + ok flag -> (C, 96, 16) depth records:
+    lanes 0:9 the raster planes, the rest zero."""
+    body = _raster_body(coeff)
+    pad = torch.zeros(body.shape[:-1] + (REC_LANES_DEPTH - 9,), dtype=torch.float32,
+                      device=coeff.device)
+    return torch.cat([body, pad], -1)
 
 
 def build_full_records(coeff, tri_screen, tri_attr):
@@ -113,47 +129,12 @@ def _plane_eval(A, oxf, oyf, xl, yl, k):
 
 def raster_resolve_tiles_reference(records, work_tile, work_slot, *, tiles: int,
                                    tx: int):
-    """Plain PyTorch version of the kernel (any device): a loop over tiles,
-    items in worklist order, the same plane arithmetic and tie rules."""
+    """Plain PyTorch version of the kernel (any device): loop 1 (max depth
+    and winner id under the kernel's tie rules) is K5's plain version, loop
+    2 evaluates the winner's attribute planes per pixel."""
     dev = records.device
-    rows = records.shape[1]
-    tile_start = _tile_start(work_tile, tiles).tolist()
+    depth, visid = raster_tiles_reference(records, work_tile, work_slot, tiles=tiles, tx=tx)
     p_in = torch.arange(PIX, device=dev)
-    xl = (p_in % TILE).to(torch.float32)[None, None, :]
-    yl = (p_in // TILE).to(torch.float32)[None, None, :]
-    row_i = torch.arange(rows, device=dev)[None, :, None]
-    depth = torch.zeros((tiles, PIX), dtype=torch.float32, device=dev)
-    visid = torch.full((tiles, PIX), -1, dtype=torch.int32, device=dev)
-    slots_all = work_slot.to(torch.int64)
-    for t in range(tiles):
-        s0, s1 = tile_start[t], tile_start[t + 1]
-        if s1 <= s0:
-            continue
-        oxf = float((t % tx) * TILE) + 0.5
-        oyf = float((t // tx) * TILE) + 0.5
-        z_acc = torch.zeros(PIX, dtype=torch.float32, device=dev)
-        id_acc = torch.full((PIX,), -1, dtype=torch.int64, device=dev)
-        for b0 in range(s0, s1, REF_ITEM_BATCH):
-            slots = slots_all[b0:min(s1, b0 + REF_ITEM_BATCH)]
-            A = records[slots][..., 0:9]                       # (n, 32, 9)
-            l1 = _plane_eval(A, oxf, oyf, xl, yl, 0)
-            l2 = _plane_eval(A, oxf, oyf, xl, yl, 3)
-            z = _plane_eval(A, oxf, oyf, xl, yl, 6)
-            inside = (l1 >= 0.0) & (l2 >= 0.0) & (l1 + l2 <= 1.0)
-            zm = torch.where(inside, z, -1.0)                  # (n, 32, PIX)
-            best = zm.amax(dim=1)                              # (n, PIX)
-            brow = torch.where(zm == best[:, None], row_i, rows).amin(dim=1)
-            # across items: strict >, so the first item reaching the max wins
-            m = best.amax(dim=0)
-            n = best.shape[0]
-            item = torch.where(best == m[None], torch.arange(n, device=dev)[:, None],
-                               n).amin(dim=0)
-            gid = slots[item] * rows + brow.gather(0, item[None])[0]
-            upd = m > z_acc
-            z_acc = torch.where(upd, m, z_acc)
-            id_acc = torch.where(upd & (m > 0.0), gid, id_acc)
-        depth[t] = torch.clamp(z_acc, min=0.0)
-        visid[t] = torch.where(z_acc > 0.0, id_acc, -1).to(torch.int32)
     # loop 2: each pixel's winner row, 16 perspective-correct planes
     flat = records.reshape(-1, records.shape[-1])
     vid = visid.reshape(-1).to(torch.int64)
@@ -172,3 +153,124 @@ def raster_resolve_tiles_reference(records, work_tile, work_slot, *, tiles: int,
     out = torch.where(won[:, None], out, 0.0)
     attrs = out.reshape(tiles, PIX, ATTR_ROWS).permute(0, 2, 1).contiguous()
     return depth, visid, attrs
+
+
+def raster_tiles(records, work_tile, work_slot, *, tiles: int, tx: int,
+                 depth_only: bool = False):
+    """Tile raster without attributes over a tile-sorted worklist (K5).
+
+    records (S, 32, lanes >= 9) f32, only lanes 0:9 read; work_tile,
+    work_slot (Wcap,) int32 (padding: tile == tiles). Returns depth (T, 1024)
+    f32 and visid (T, 1024) int32 (slot * 32 + row; -1 everywhere when
+    ``depth_only``)."""
+    if records.device.type == "cpu":
+        return raster_tiles_reference(records, work_tile, work_slot, tiles=tiles,
+                                      tx=tx, depth_only=depth_only)
+    return _raster_tiles_cuda(records, work_tile, work_slot, tiles=tiles, tx=tx,
+                              depth_only=depth_only)
+
+
+def _raster_tiles_cuda(records, work_tile, work_slot, *, tiles, tx, depth_only):
+    global tiles_launches
+    S, _, lanes = records.shape
+    if lanes < 9:
+        raise ValueError(f"records need >= 9 lanes, got {lanes}")
+    kernels.require(records, "records", torch.float32, (S, TRI_CHUNK, lanes))
+    kernels.require(work_tile, "work_tile", torch.int32)
+    kernels.require(work_slot, "work_slot", torch.int32, work_tile.shape)
+    lib = kernels.library()
+    dev = records.device
+    tile_start = _tile_start(work_tile, tiles)
+    depth = torch.empty((tiles, PIX), dtype=torch.float32, device=dev)
+    visid = torch.empty((tiles, PIX), dtype=torch.int32, device=dev)
+    err = lib.hr_raster_tiles(records.data_ptr(), tile_start.data_ptr(),
+                              work_slot.data_ptr(), depth.data_ptr(), visid.data_ptr(),
+                              tiles, tx, lanes, int(bool(depth_only)),
+                              kernels.stream_handle(dev))
+    kernels.check(err, "hr_raster_tiles")
+    tiles_launches += 1
+    return depth, visid
+
+
+def _rows_outside(A, oxf, oyf):
+    """(m, 32) rows that cannot cover any pixel of their item's tile: at
+    some tile corner test l1 >= 0, l2 >= 0 or l1 + l2 <= 1 fails in exact
+    arithmetic (float64 at the corners, where an affine plane takes its
+    extremes over the tile) by more than 1e-5 of the plane's magnitude, far
+    beyond the rounding of the kernel's f32 evaluation. Invalid rows (l1c =
+    -1e9) are among them."""
+    A = A.to(torch.float64)
+    X = torch.cat([oxf, oxf + (TILE - 1)], -1).to(torch.float64)     # (m, 1, 2)
+    Y = torch.cat([oyf, oyf + (TILE - 1)], -1).to(torch.float64)
+
+    def extremes(a0, a1, a2):
+        px, py = a0 * X, a1 * Y
+        mag = (torch.abs(a0) * torch.abs(X).amax(-1, keepdim=True)
+               + torch.abs(a1) * torch.abs(Y).amax(-1, keepdim=True) + torch.abs(a2))
+        return (a2 + px.amin(-1, keepdim=True) + py.amin(-1, keepdim=True),
+                a2 + px.amax(-1, keepdim=True) + py.amax(-1, keepdim=True), mag)
+
+    _, hi1, m1 = extremes(A[..., 0:1], A[..., 1:2], A[..., 2:3])
+    _, hi2, m2 = extremes(A[..., 3:4], A[..., 4:5], A[..., 5:6])
+    lo_s, _, _ = extremes(A[..., 0:1] + A[..., 3:4], A[..., 1:2] + A[..., 4:5],
+                          A[..., 2:3] + A[..., 5:6])
+    out = ((hi1 < -1e-5 * m1) | (hi2 < -1e-5 * m2)
+           | (lo_s > 1.0 + 1e-5 * (m1 + m2) + 1e-6))
+    return out[..., 0]
+
+
+def raster_tiles_reference(records, work_tile, work_slot, *, tiles: int, tx: int,
+                           depth_only: bool = False):
+    """Plain PyTorch version of K5 (any device). Walks the worklist in
+    batches of items, whatever their tiles, so empty tiles cost nothing, and
+    evaluates only the rows that can reach their tile (``_rows_outside``
+    leaves out the others, which no pixel could count as inside). Each
+    evaluated row's plane arithmetic is the kernel's; a batch reduces its
+    items per tile (max depth; the first item reaching it keeps the id, and
+    the lowest row inside it), and a tile takes a batch's result only where
+    it is strictly deeper than what earlier batches left, the kernel's
+    strict > across items."""
+    dev = records.device
+    rows = records.shape[1]
+    n = int(_tile_start(work_tile, tiles)[-1])
+    p_in = torch.arange(PIX, device=dev)
+    xl = (p_in % TILE).to(torch.float32)[None, :]
+    yl = (p_in // TILE).to(torch.float32)[None, :]
+    z_acc = torch.zeros((tiles, PIX), dtype=torch.float32, device=dev)
+    id_acc = torch.full((tiles, PIX), -1, dtype=torch.int64, device=dev)
+    for b0 in range(0, n, REF_ITEM_BATCH):
+        t_b = work_tile[b0:min(n, b0 + REF_ITEM_BATCH)].to(torch.int64)
+        m = t_b.shape[0]
+        slots = work_slot[b0:b0 + m].to(torch.int64)
+        A = records[slots][..., 0:9]                           # (m, 32, 9)
+        oxf = ((t_b % tx) * TILE).to(torch.float32)[:, None, None] + 0.5
+        oyf = ((t_b // tx) * TILE).to(torch.float32)[:, None, None] + 0.5
+        ki, kr = torch.nonzero(~_rows_outside(A, oxf, oyf), as_tuple=True)
+        Ak, oxk, oyk = A[ki, kr], oxf[ki, 0], oyf[ki, 0]       # (K, 9), (K, 1)
+        l1 = _plane_eval(Ak, oxk, oyk, xl, yl, 0)              # (K, PIX)
+        l2 = _plane_eval(Ak, oxk, oyk, xl, yl, 3)
+        z = _plane_eval(Ak, oxk, oyk, xl, yl, 6)
+        zm = torch.where((l1 >= 0.0) & (l2 >= 0.0) & (l1 + l2 <= 1.0), z, -1.0)
+        ki_e = ki[:, None].expand(-1, PIX)
+        best = torch.full((m, PIX), -1.0, device=dev).scatter_reduce(0, ki_e, zm, "amax")
+        uniq, inv = torch.unique_consecutive(t_b, return_inverse=True)
+        inv_e = inv[:, None].expand(-1, PIX)
+        m_t = torch.full((uniq.shape[0], PIX), -2.0, device=dev).scatter_reduce(
+            0, inv_e, best, "amax")                            # per-tile max
+        z_prev = z_acc[uniq]
+        upd = m_t > z_prev
+        z_acc[uniq] = torch.where(upd, m_t, z_prev)
+        if depth_only:
+            continue
+        # lowest row reaching its item's max (rows left out never reach a
+        # max above -1, the only maxima that can win)
+        brow = torch.full((m, PIX), rows, device=dev).scatter_reduce(
+            0, ki_e, torch.where(zm == best[ki], kr[:, None], rows), "amin")
+        item = torch.where(best == m_t[inv], torch.arange(m, device=dev)[:, None], m)
+        first = torch.full((uniq.shape[0], PIX), m, device=dev).scatter_reduce(
+            0, inv_e, item, "amin").clamp(max=m - 1)
+        gid = slots[first] * rows + brow.gather(0, first)
+        id_acc[uniq] = torch.where(upd & (m_t > 0.0), gid, id_acc[uniq])
+    depth = torch.clamp(z_acc, min=0.0)
+    visid = torch.where(z_acc > 0.0, id_acc, -1).to(torch.int32)
+    return depth, visid

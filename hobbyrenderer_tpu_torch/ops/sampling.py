@@ -30,3 +30,11 @@ def sample_cone(axis, cos_theta_max, u1, u2):
     phi = (2.0 * math.pi) * u2
     local = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t], -1)
     return to_world(axis, local)
+
+
+def cosine_sample_hemisphere(u1, u2):
+    """Local-space cosine-weighted direction, pdf = cos / pi."""
+    r = torch.sqrt(u1)
+    phi = (2.0 * math.pi) * u2
+    z = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)

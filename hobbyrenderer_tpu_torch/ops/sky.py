@@ -1,6 +1,8 @@
 """Sky radiance (counterpart of hobbyrenderer_tpu/ops/sky.py, the default
-"bruneton" model): the LUT atmosphere on a strided grid, bilinearly
-upsampled, with a full-resolution analytic sun disk."""
+"bruneton" model): ``sky_radiance`` is the LUT atmosphere per direction (the
+DDGI probe rays' misses read it); ``sky_radiance_fast`` marches it on a
+strided grid, bilinearly upsampled, with a full-resolution analytic sun
+disk."""
 
 from __future__ import annotations
 
@@ -14,13 +16,19 @@ from hobbyrenderer_tpu_torch.utils import tmath as tm
 SKY_FAST_SCALE = 4
 
 
+def sky_radiance(d, sun_dir, settings, with_sun_disk: bool = True):
+    """Sky radiance for directions d (..., 3); sun_dir is the direction the
+    sunlight travels."""
+    return atm.sky_radiance_lut(d, sun_dir, settings, with_sun_disk=with_sun_disk)
+
+
 def sky_radiance_fast(d, sun_dir, settings, with_sun_disk: bool = True):
     """(H, W, 3) direction images: march on a 1/SKY_FAST_SCALE grid +
     upsample + full resolution sun disk. Flat (R, 3) directions get the full
     march."""
     scale = SKY_FAST_SCALE
     if d.ndim != 3:
-        return atm.sky_radiance_lut(d, sun_dir, settings, with_sun_disk=with_sun_disk)
+        return sky_radiance(d, sun_dir, settings, with_sun_disk=with_sun_disk)
     H, W = d.shape[0], d.shape[1]
     sh, sw = H // scale, W // scale
     L = atm.sky_radiance_lut(d[::scale, ::scale][:sh, :sw], sun_dir, settings,

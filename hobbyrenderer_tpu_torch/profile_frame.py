@@ -1,7 +1,7 @@
 """Per-pass profile of the port's frame on the GPU.
 
     python -m hobbyrenderer_tpu_torch.profile_frame --scene stress \
-        [--direct-mode restir] [--frames 8]
+        [--direct-mode restir] [--mode normal_basic --indirect-mode ddgi] [--frames 8]
 
 Renders ``--frames`` frames and prints, per pass: the stream time (CUDA
 events around each pass, median over the frames after the first) and the
@@ -65,6 +65,8 @@ def main(argv=None):
     p.add_argument("--width", type=int, default=1920)
     p.add_argument("--height", type=int, default=1080)
     p.add_argument("--direct-mode", default="simple", choices=("simple", "restir"))
+    p.add_argument("--mode", default="normal", choices=("normal", "normal_basic"))
+    p.add_argument("--indirect-mode", default="none", choices=("none", "ssgi", "ddgi"))
     p.add_argument("--frames", type=int, default=8)
     p.add_argument("--cache-dir", default=".hr_cache")
     a = p.parse_args(argv)
@@ -76,8 +78,9 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
-    r = Renderer(Config(scene=a.scene, width=a.width, height=a.height,
-                        direct_mode=a.direct_mode, cache_dir=a.cache_dir), device="cuda")
+    r = Renderer(Config(scene=a.scene, width=a.width, height=a.height, mode=a.mode,
+                        direct_mode=a.direct_mode, indirect_mode=a.indirect_mode,
+                        cache_dir=a.cache_dir), device="cuda")
     names = [ps.name for ps in r.graph.passes if ps.enabled]
     events = time_passes(r.graph)
     frame_ms = []
@@ -108,8 +111,8 @@ def main(argv=None):
     rows = {n: {"stream_ms": median_ms(events[n]),
                 "kernel_ms": round(per[n] / 3, 3) if n in per else None} for n in names}
     print("per-pass " + json.dumps(rows))
-    print(json.dumps({"scene": a.scene, "size": [a.width, a.height],
-                      "direct_mode": a.direct_mode,
+    print(json.dumps({"scene": a.scene, "size": [a.width, a.height], "mode": a.mode,
+                      "direct_mode": a.direct_mode, "indirect_mode": a.indirect_mode,
                       "frame_ms": [round(x, 2) for x in frame_ms],
                       "median_ms_after_first": round(statistics.median(frame_ms[1:]), 2),
                       "kernels_per_frame": round(len(kern) / 3),

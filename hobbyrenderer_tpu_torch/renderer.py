@@ -3,8 +3,9 @@ explicit torch device (counterpart of hobbyrenderer_tpu/renderer.py).
 
 Ported: the Normal-mode frame with simple direct lighting or ReSTIR DI
 (``direct_mode="restir"``, every ``restir_quality`` preset, both
-denoisers) and no indirect mode; every other option raises
-NotImplementedError naming the ROADMAP slice that brings it."""
+denoisers) and no indirect mode, and the NormalBasic frame (cascaded
+shadow maps) with ``indirect_mode`` none, ssgi or ddgi; every other option
+raises NotImplementedError naming the ROADMAP slice that brings it."""
 
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from hobbyrenderer_tpu_torch.models.scene_rt import build_scene_rt
 from hobbyrenderer_tpu_torch.scene.gpu import build_scene_gpu, update_instance_transforms
 
 _REGIR = "ROADMAP Queue 1 slice 7 (ReGIR)"
-_LATER = "ROADMAP Queue 1 slice 5+ (options outside the ported Normal frames)"
+_LATER = "ROADMAP Queue 1 slice 5+ (options outside the ported Normal and NormalBasic frames)"
 
 
 def check_config(cfg: Config):
@@ -36,14 +37,17 @@ def check_config(cfg: Config):
         if not ok:
             raise NotImplementedError(f"{what} is not ported yet: {slice_}")
 
-    need(cfg.mode == RenderingMode.NORMAL, f"--mode {cfg.mode}", _LATER)
+    need(cfg.mode in (RenderingMode.NORMAL, RenderingMode.NORMAL_BASIC),
+         f"--mode {cfg.mode}", _LATER)
     need((cfg.direct_mode or "simple") in ("simple", "restir"),
          f"--direct-mode {cfg.direct_mode}", _LATER)
     need(not cfg.regir, "--regir", _REGIR)
     if (cfg.direct_mode or "simple") == "restir" and cfg.denoiser not in ("relax", "reblur"):
         raise ValueError(f"unknown denoiser '{cfg.denoiser}' (relax | reblur)")
-    need((cfg.indirect_mode or "none") == "none",
-         f"--indirect-mode {cfg.indirect_mode}", _LATER)
+    indirect = cfg.indirect_mode or "none"
+    need(indirect == "none" or (cfg.mode == RenderingMode.NORMAL_BASIC
+                                and indirect in ("ssgi", "ddgi")),
+         f"--indirect-mode {cfg.indirect_mode} in --mode {cfg.mode}", _LATER)
     need(cfg.render_scale == 1.0, "--render-scale != 1 (TAA upscaling)", _LATER)
     need(not cfg.tex_streaming, "texture streaming", _LATER)
     need(not (cfg.envmap or cfg.irradiance or cfg.radiance or cfg.brdflut
@@ -106,14 +110,23 @@ class Renderer:
         os.makedirs(cfg.cache_dir, exist_ok=True)
         self.camera_state.restore(self.camera, self._scene_key)
         self.camera_state.start()
-        with PROFILER.scope("Init/BVH"):
-            t0 = time.perf_counter()
-            restir = (cfg.direct_mode or "simple") == "restir"
-            rt = build_scene_rt(self.scene, self.device, gpu=self.gpu if restir else None)
-            self.bvh_seconds = time.perf_counter() - t0
+        # the JAX Renderer's rule: the traced passes need the RT scene (the
+        # Normal frame's sun shadow or RTXDI, NormalBasic's DDGI); the light
+        # pool and the 16-wide BVH only RTXDI and DDGI
+        ddgi = (cfg.indirect_mode or "none") == "ddgi"
+        restir = (cfg.direct_mode or "simple") == "restir" and cfg.mode == RenderingMode.NORMAL
+        rt = None
+        self.bvh_seconds = 0.0
+        if cfg.mode == RenderingMode.NORMAL or ddgi:
+            with PROFILER.scope("Init/BVH"):
+                t0 = time.perf_counter()
+                rt = build_scene_rt(self.scene, self.device,
+                                    gpu=self.gpu if (restir or ddgi) else None)
+                self.bvh_seconds = time.perf_counter() - t0
         self._model = DeferredRenderer(self.gpu, cfg.render_width, cfg.render_height,
-                                       rt=rt, shadow_scale=cfg.shadow_scale,
+                                       rt=rt, shadow_scale=cfg.shadow_scale, mode=cfg.mode,
                                        direct_mode=cfg.direct_mode or "simple",
+                                       indirect_mode=cfg.indirect_mode or "none",
                                        restir_quality=cfg.restir_quality,
                                        denoiser_profile=cfg.denoiser)
 

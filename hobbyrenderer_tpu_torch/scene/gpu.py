@@ -119,6 +119,20 @@ class SceneGPU:
     def bucket_pair_capacity(self, modes) -> int:
         return self.meta["bucket_pair_capacity"][tuple(modes)]
 
+    def shadow_pair_capacity(self, biases) -> int:
+        """Static bound on (cascade, pair) shadow-raster slots: per cascade c,
+        every shadow-casting instance contributes its meshlet count at LOD
+        min(biases[c], lod_count - 1)."""
+        counts = self.meta["inst_lod_pairs"]
+        lc = self.meta["inst_lod_count"]
+        casts = self.meta["inst_casts_shadow"]
+        n = counts.shape[0]
+        total = 0
+        for b in biases:
+            lod = np.minimum(b, lc - 1)
+            total += int(np.sum(counts[np.arange(n), lod] * casts))
+        return max(total, 1)
+
 
 # the JAX SceneGPU leaves this port carries, in dataclass order
 FIELDS = tuple(f.name for f in dataclasses.fields(SceneGPU) if f.name != "meta")
@@ -136,6 +150,19 @@ def _host_meta(g: SceneGPU) -> Dict[str, Any]:
     for modes in ((0,), (1,), (2,)):
         caps[modes] = int(np.sum(lod0 & np.isin(pam, modes)))
     is_dir = (lt == 0) & (np.arange(lt.shape[0]) < nl)
+    n = g.inst_prim.shape[0]
+    inst_lod_pairs = np.zeros((n, int(pl.max()) + 1), np.int64)
+    np.add.at(inst_lod_pairs, (pi, pl), 1)
+    # scene bounds from the instance spheres and the bounding-sphere radius
+    # about their centre (they size the CSM range and the DDGI volume)
+    c = g.inst_center.cpu().numpy().reshape(-1, 3)
+    r = g.inst_radius.cpu().numpy().reshape(-1)
+    if c.size:
+        lo, hi = (c - r[:, None]).min(0), (c + r[:, None]).max(0)
+        mid = 0.5 * (lo + hi)
+        radius = float((np.linalg.norm(c - mid, axis=1) + r).max())
+    else:
+        lo, hi, radius = np.full(3, -30.0), np.full(3, 30.0), 30.0
     return {"light_count": nl,
             "light_types": lt[:nl].tolist(),
             "lod0_pair_capacity": int(np.sum(lod0)),
@@ -143,7 +170,12 @@ def _host_meta(g: SceneGPU) -> Dict[str, Any]:
             "has_masked": bool((am == 1).any()),
             "has_transparent": bool((am == 2).any()),
             "sun_index": int(np.argmax(is_dir)),
-            "has_sun": bool(is_dir.any())}
+            "has_sun": bool(is_dir.any()),
+            "inst_lod_pairs": inst_lod_pairs,
+            "inst_lod_count": g.prim_lod_count.cpu().numpy()[g.inst_prim.cpu().numpy()],
+            "inst_casts_shadow": am < 2,
+            "scene_bounds": (lo, hi),
+            "scene_radius": radius}
 
 
 def _to_tensor(v, device) -> torch.Tensor:
@@ -155,7 +187,7 @@ def _to_tensor(v, device) -> torch.Tensor:
     return torch.as_tensor(a.astype(np.float32), device=device)
 
 
-def scene_gpu_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> SceneGPU:
+def scene_gpu_from_numpy(d: Dict[str, np.ndarray], device) -> SceneGPU:
     """The JAX SceneGPU's leaves as numpy (``{name: np.asarray(leaf)}``) ->
     the port's SceneGPU on ``device``."""
     missing = [k for k in FIELDS if k not in d]

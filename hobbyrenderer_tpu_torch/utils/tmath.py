@@ -26,6 +26,15 @@ def reflect(d, n):
     return d - 2.0 * torch.sum(d * n, dim=-1, keepdim=True) * n
 
 
+def oct_encode(n):
+    """Unit vector -> octahedral (u, v) in [-1, 1]^2."""
+    n = n / torch.clamp(torch.sum(torch.abs(n), dim=-1, keepdim=True), min=1e-20)
+    u, v, z = n[..., 0], n[..., 1], n[..., 2]
+    pu = (1.0 - torch.abs(v)) * torch.where(u >= 0.0, 1.0, -1.0)
+    pv = (1.0 - torch.abs(u)) * torch.where(v >= 0.0, 1.0, -1.0)
+    return torch.stack([torch.where(z < 0.0, pu, u), torch.where(z < 0.0, pv, v)], dim=-1)
+
+
 def oct_decode(e):
     u, v = e[..., 0], e[..., 1]
     z = 1.0 - torch.abs(u) - torch.abs(v)

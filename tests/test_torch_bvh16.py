@@ -55,7 +55,7 @@ def _setup():
         return _CACHE["s"]
     verts = tsrt.build_scene_rt(make_stress_scene(grid=2), "cpu").split_world0.numpy()
     jbv = jb16.build_bvh16(verts)
-    tbv = tb16.build_bvh16(verts)
+    tbv = tb16.build_bvh16(verts, "cpu")
     rng = np.random.default_rng(0)
     lo, hi = np.asarray(jbv.root_box[:3]), np.asarray(jbv.root_box[3:])
     o = rng.uniform(lo, hi, (R, 3)).astype(np.float32)
@@ -178,7 +178,7 @@ def test_scene_rt_from_jax_carries_bvh16_and_pool():
     d["lights"] = {k: np.asarray(getattr(jrt.lights, k))
                    for k in ("n_analytic", "n_total") + tsrt.POOL_FIELDS}
     d["em_index"] = np.asarray(jrt.em_index)
-    conv = tsrt.scene_rt_from_numpy(d)
+    conv = tsrt.scene_rt_from_numpy(d, "cpu")
     scene = make_stress_scene(grid=2)
     from hobbyrenderer_tpu_torch.scene.gpu import build_scene_gpu
     own = tsrt.build_scene_rt(scene, "cpu",

@@ -107,14 +107,14 @@ def test_build_scene_gpu_matches_jax(name):
 @pytest.mark.parametrize("name", list(SCENES))
 def test_scene_gpu_from_numpy_roundtrip(name):
     leaves = _jax_leaves(jax_build_scene_gpu(SCENES[name]()))
-    got = tgpu.scene_gpu_from_numpy(leaves)
+    got = tgpu.scene_gpu_from_numpy(leaves, "cpu")
     ref = tgpu.build_scene_gpu(TSCENES[name](), "cpu")
     for k in tgpu.FIELDS:
         assert torch.equal(getattr(got, k), getattr(ref, k)), k
     assert got.meta["light_count"] == int(leaves["light_count"])
     assert got.lod0_pair_capacity == int(np.sum(leaves["pair_lod"] == 0))
     with pytest.raises(NotImplementedError):
-        tgpu.scene_gpu_from_numpy(dict(leaves, env_sh=np.zeros((9, 3), np.float32)))
+        tgpu.scene_gpu_from_numpy(dict(leaves, env_sh=np.zeros((9, 3), np.float32)), "cpu")
 
 
 @pytest.mark.parametrize("name", list(SCENES))
@@ -135,12 +135,12 @@ def test_scene_rt_matches_jax_sunshadow_subset():
     scene = make_stress_scene(grid=2)
     jg = jax_build_scene_gpu(scene)
     jrt = jpt.build_scene_rt(scene, jg)
-    d = {k: np.asarray(getattr(jrt, k)) for k in tsrt.RT_FIELDS}
+    d = {k: np.asarray(getattr(jrt, k)) for k in tsrt.RT_FIELDS + tsrt.TABLE_FIELDS}
     d.update(bvh_table=np.asarray(jrt.bvh.table), bvh_order=np.asarray(jrt.bvh.order),
              bvh_root_box=np.asarray(jrt.bvh.root_box))
-    conv = tsrt.scene_rt_from_numpy(d)
+    conv = tsrt.scene_rt_from_numpy(d, "cpu")
     own = tsrt.build_scene_rt(tproc.make_stress_scene(grid=2), "cpu")
-    for k in tsrt.RT_FIELDS:
+    for k in tsrt.RT_FIELDS + tsrt.TABLE_FIELDS:
         assert torch.equal(getattr(conv, k), getattr(own, k)), k
     np.testing.assert_array_equal(conv.bvh.table, own.bvh.table)
 
