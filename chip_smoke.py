@@ -6,23 +6,28 @@
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
 parallel), holds each against its plain PyTorch version at the shapes of
 the 1080p stress frames, renders small frames on the GPU and on the CPU and
-compares them, then drives the three main paths — Renderer(Config(
+compares them, then drives the main paths — Renderer(Config(
 scene="stress", 1920x1080), device="cuda") with simple direct light, the
 same with direct_mode="restir" (RTXDI + Denoise, whose passes run under
 torch.cuda.set_sync_debug_mode("error")), and mode="normal_basic" with
 indirect_mode="ddgi" (cascaded shadow maps + DDGI), 8 frames each, then 4
-NormalBasic frames with SSGI — and checks that every kernel of each path
-launched. Any failed check raises: the script then exits nonzero without
+NormalBasic frames with SSGI; then the flagship frame (direct_mode and
+indirect_mode "restir": ReSTIR GI + traced specular), once to capture its
+GI bounce and reflection rays, which then go through the sorted-block
+route closest_hit_auto(..., force_kernel=True) and its kernel K6 (phase
+13), and 8 frames as the main path (phase 15) — and checks that every
+kernel of each path launched. Any failed check raises: the script then exits nonzero without
 its final line.
 
 Kernels: K1 tile raster and K5 depth-only tile raster
 (csrc/raster_resolve.cu), K2 ReSTIR candidates (csrc/restir_candidates.cu),
-K3 bvh16 walk (csrc/bvh16_walk.cu), K4 any hit (csrc/beam_any_hit.cu).
-Each one's bound (bound_ms) is the larger of its bytes (inputs read once,
-outputs written once; of the walks' node tables, K3 and K4, only the rows
-this run's rays read) over 3.35 TB/s and its fp32 operations on this run's
-data over 67 TFLOP/s (H100 SXM data sheet). K2, K3 and K5 must equal their
-plain versions bit for bit, in every output.
+K3 bvh16 walk (csrc/bvh16_walk.cu), K4 any hit (csrc/beam_any_hit.cu), K6
+sorted-block closest hit (csrc/closest_blocks.cu). Each one's bound
+(bound_ms) is the larger of its bytes (inputs read once, outputs written
+once; of the walks' node tables, K3, K4 and K6, only the rows this run's
+rays read) over 3.35 TB/s and its fp32 operations on this run's data over
+67 TFLOP/s (H100 SXM data sheet). K2, K3, K5 and K6 must equal their plain
+versions bit for bit, in every output.
 
 Output, in order: the card's name and power limit, versions, build time,
 one line per phase, the kernels JSON line, and last
@@ -117,12 +122,16 @@ def main():
     from hobbyrenderer_tpu_torch.ops import raster_kernel as rk
     from hobbyrenderer_tpu_torch.ops import restir_kernel as rko
     from hobbyrenderer_tpu_torch.ops import sampling as smp
+    from hobbyrenderer_tpu_torch.ops import sky as skyops
+    from hobbyrenderer_tpu_torch.ops import trace as traceops
+    from hobbyrenderer_tpu_torch.ops import trace_kernel as tk
     from hobbyrenderer_tpu_torch.profile_frame import median_ms, time_passes
     from hobbyrenderer_tpu_torch.renderer import Renderer
     t_start = time.perf_counter()
+    late_failures = []
     # each kernel's launch count: (module, attribute)
     counters = {"K1": (rk, "launches"), "K2": (rko, "launches"), "K3": (b16ops, "launches"),
-                "K4": (beamops, "launches"), "K5": (rk, "tiles_launches")}
+                "K4": (beamops, "launches"), "K5": (rk, "tiles_launches"), "K6": (tk, "launches")}
 
     def reset_counts():
         for m, attr in counters.values():
@@ -588,6 +597,204 @@ def main():
     assert launches_ssgi["K1"] >= 12 and launches_ssgi["K5"] >= 4, launches_ssgi
     assert launches_ssgi["K3"] == 0 and not rt_built, launches_ssgi
 
+    # ---- phase 13: K6 on the first 1080p stress flagship frame's GI bounce
+    # and reflection rays. The frame runs on its default route (K3); its two
+    # closest_hit_counted calls are captured. The K6 path, closest_hit_auto(
+    # ..., force_kernel=True) on those rays, runs with the counts reset just
+    # before and read just after. Then K6 against its plain version on the
+    # packed blocks, and against K3 -----------------------------------------
+    t0 = time.perf_counter()
+    cap13 = []
+    counted_orig = traceops.closest_hit_counted
+
+    def counted_spy(rt, o, d, active, max_steps=None):
+        cap13.append((o, d, active))
+        return counted_orig(rt, o, d, active, max_steps=max_steps)
+
+    traceops.closest_hit_counted = counted_spy
+    try:
+        r = Renderer(Config(scene="stress", width=1920, height=1080, direct_mode="restir",
+                            indirect_mode="restir",
+                            cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_flag_k6")),
+                     device="cuda")
+        r.render_frame()
+        torch.cuda.synchronize()
+    finally:
+        traceops.closest_hit_counted = counted_orig
+    stats_13 = r.stats()
+    rt13 = r._model.rt
+    assert len(cap13) == 2, f"expected the GI bounce and reflection calls, got {len(cap13)}"
+    cap6 = []
+    k6_orig = tk.closest_hit_blocks
+
+    def k6_spy(btable, rays, t_min=1e-4):
+        cap6.append((btable, rays, t_min))
+        return k6_orig(btable, rays, t_min)
+
+    tk.closest_hit_blocks = k6_spy
+    try:
+        reset_counts()
+        for o13, d13, act13 in cap13:
+            traceops.closest_hit_auto(rt13, o13, d13, active=act13, force_kernel=True)
+        torch.cuda.synchronize()
+        launches_k6 = counts()
+    finally:
+        tk.closest_hit_blocks = k6_orig
+    table16 = rt13.bvh16.table
+    # a coherent control set: the camera rays of every other pixel
+    vc = r.view_constants()
+    d_cam = skyops.view_dirs_from_pixels(vc, 1080, 1920)[::2, ::2].reshape(-1, 3)
+    o_cam = vc["camera_pos"][None, :].expand_as(d_cam)
+    cam_rays, _ = traceops.pack_rays_sorted(
+        o_cam, d_cam, torch.full((d_cam.shape[0],), traceops.TMAX_CAP, device="cuda"),
+        torch.ones((d_cam.shape[0],), dtype=torch.bool, device="cuda"),
+        torch.as_tensor(rt13.bvh.root_box, device="cuda"))
+    cap6.append((rt13.btable, cam_rays, 1e-4))
+    r.shutdown()
+    del cap13, rt13
+    log(f"phase13 flagship frame 1 on the default route, then its GI bounce and reflection "
+        f"rays through closest_hit_auto(force_kernel=True): launches {launches_k6}, frame stats "
+        f"{json.dumps(stats_13)} ({time.perf_counter() - t0:.1f} s)")
+    assert len(cap6) == 3 and launches_k6["K6"] == 2, (len(cap6), launches_k6)
+    assert sum(launches_k6.values()) == 2, launches_k6
+    k6_rows = []
+    for name, (btab, rays6, t_min) in zip(("gi_bounce", "specular", "camera_control"), cap6):
+        got = tk.closest_hit_blocks(btab, rays6, t_min)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        st6 = {}
+        e0.record()
+        ref = tk.closest_hit_blocks_reference(btab, rays6, t_min, stats=st6)
+        e1.record()
+        torch.cuda.synchronize()
+        pms = e0.elapsed_time(e1)
+        mism = [int((g != x).sum()) for g, x in zip(got, ref)]
+        ms = cuda_ms(lambda: tk.closest_hit_blocks(btab, rays6, t_min))
+        T6 = rays6.shape[0]
+        flat = rays6.permute(0, 2, 1).reshape(-1, 8)
+        act = flat[:, 7] > 0.5
+        o6, d6, tm6 = (flat[act, 0:3].contiguous(), flat[act, 3:6].contiguous(),
+                       flat[act, 6].contiguous())
+        steps3 = max(24, 512 // 4)          # the main path's K3 budget for these rays
+        bt3, btri3, bs3 = b16ops.bvh16_walk(table16, o6, d6, tm6, False, steps3, t_min)
+        ms3 = cuda_ms(lambda: b16ops.bvh16_walk(table16, o6, d6, tm6, False, steps3, t_min))
+        tri6 = got[1].reshape(-1)[act].to(torch.int32)
+        t6 = got[0].reshape(-1)[act]
+        ovf_lane = (got[5] > 0.5)[:, None].expand(T6, tk.PIX).reshape(-1)[act]
+        capped3 = bs3 >= steps3
+        clean = ~ovf_lane & ~capped3
+        agree = tri6 == btri3
+        ties = ~agree & (t6 == bt3)
+        n_clean = int(clean.sum())
+        bad = int((clean & ~agree & ~ties).sum())
+        missed = int((ovf_lane & (btri3 >= 0) & (tri6 < 0)).sum())
+        n_ovf6 = int((got[5] > 0.5).sum())
+        bnd = bound(st6["rows"] * btab.shape[1] * 4 + nbytes(rays6, *got),
+                    st6["leaf_lane_rows"] * 4 * tk.MT_OPS + st6["box_tests"] * tk.BOX_OPS)
+        k6_rows.append(dict(name=name, blocks=T6, lanes=int(act.sum()), ms=ms, plain_ms=pms,
+                            k3_ms=ms3, bound=bnd, err=max(float((g - x).abs().max())
+                                                          for g, x in zip(got[:5], ref[:5])),
+                            ovf_blocks=n_ovf6))
+        log(f"phase13 K6 {name} blocks={T6} active lanes={int(act.sum())}: mismatches vs plain "
+            f"(t, tri, u, v, front, ovf) {mism}; overflowed blocks {n_ovf6}/{T6} "
+            f"({n_ovf6 / T6:.3f}); rows read {st6['rows']} (leaf {st6['leaf_rows']}); hit share "
+            f"K6 {float((tri6 >= 0).float().mean()):.4f} "
+            f"K3 {float((btri3 >= 0).float().mean()):.4f}; K6 vs K3 ({steps3} steps) on {n_clean} lanes outside overflowed blocks and "
+            f"K3-capped lanes: tri agree {int((clean & agree).sum())}, t ties "
+            f"{int((clean & ties).sum())}, other {bad}; K3-capped lanes {int(capped3.sum())}; "
+            f"hits K6 missed in overflowed blocks {missed}; kernel {ms:.3f} ms, K3 {ms3:.3f} ms, "
+            f"plain {pms:.1f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        assert all(m == 0 for m in mism), f"K6 {name} is not bit-exact with its plain version"
+        if bad:         # checked at the end, so that the later phases still report
+            late_failures.append(f"K6 {name} disagrees with K3 on {bad} clean lanes")
+        k6_rows[-1]["clean"] = n_clean
+    if k6_rows[-1]["clean"] == 0:
+        late_failures.append("no camera-ray block stayed inside the frontier")
+    k6_main = k6_rows[0]         # the GI bounce rays: the main path's largest K6 call
+    del cap6, got, ref, table16
+
+    # ---- phase 14: the flagship frame, CUDA (kernels) against CPU (plain) --
+    cfg = Config(scene="stress:4", width=256, height=192, direct_mode="restir",
+                 indirect_mode="restir",
+                 cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke4flag"))
+    t0 = time.perf_counter()
+    rg = Renderer(cfg, device="cuda")
+    rc = Renderer(cfg, device="cpu")
+    for _ in range(3):
+        lg = rg.render_frame().cpu().numpy()
+        lc = rc.render_frame().numpy()
+    sg, sc_ = rg.stats(), rc.stats()
+    rg.shutdown()
+    rc.shutdown()
+    diff = np.abs(lg.astype(np.int32) - lc.astype(np.int32)).max(-1)
+    within = float(np.mean(diff <= 2))
+    log(f"phase14 flagship stress:4 256x192 x3 frames cuda vs cpu: {within * 100:.3f}% of LDR "
+        f"pixels within 2/255, mean |d| {float(diff.mean()):.4f}, max {int(diff.max())}; "
+        f"stats cuda {json.dumps(sg)} cpu {json.dumps(sc_)} ({time.perf_counter() - t0:.1f} s)")
+    assert within >= 0.99, within
+
+    # ---- phase 15: the flagship main path -----------------------------------
+    t0 = time.perf_counter()
+    r = Renderer(Config(scene="stress", width=1920, height=1080, direct_mode="restir",
+                        indirect_mode="restir",
+                        cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_flag_main")),
+                 device="cuda")
+    setup_fl = time.perf_counter() - t0
+    r._model.keep = ("hdr",)
+    syncs = {}
+    events = time_passes(r.graph, strict=("RTXDI", "Denoise"),
+                         watch=("RTXDIGI", "SpecularIndirect"), syncs=syncs)
+    reset_counts()
+    frame_fl, stats_fl, per_frame = [], [], []
+    for _ in range(n_frames):
+        c0 = counts()
+        f0 = time.perf_counter()
+        r.render_frame()
+        torch.cuda.synchronize()
+        frame_fl.append((time.perf_counter() - f0) * 1e3)
+        stats_fl.append(r.stats())
+        per_frame.append({k: v - c0[k] for k, v in counts().items()})
+    launches_fl = counts()
+    ldr = r.last_frame
+    hdr = r._model.last_resources["hdr"]
+    png_fl = os.path.join(tempfile.gettempdir(), "chip_smoke_stress_flagship_1080p.png")
+    r.save_screenshot(png_fl)
+    passes_fl = [p.name for p in r.graph.passes if p.enabled]
+    r.shutdown()
+    pass_ms_fl = {k: median_ms(v) for k, v in events.items()}
+    fl_med = statistics.median(frame_fl[1:])
+
+    def share(lanes_key, capped_key):
+        lanes_ = sum(s_[lanes_key] for s_ in stats_fl)
+        capped_ = sum(s_[capped_key] for s_ in stats_fl)
+        return f"{capped_}/{lanes_} ({capped_ / max(lanes_, 1):.5f})"
+    log(f"phase15 flagship main path stress 1920x1080 x{n_frames}: setup {setup_fl:.1f} s "
+        f"(BVH+beam table+bvh16+light pool {r.bvh_seconds:.1f} s), passes {passes_fl}, frame ms "
+        f"{[round(x, 2) for x in frame_fl]}, median frames 2-{n_frames} {fl_med:.2f} ms, "
+        f"launches {launches_fl}, per frame {per_frame}, rt_overflow_di per frame "
+        f"{[s_['rt_overflow_di'] for s_ in stats_fl]}, rt_overflow_gi per frame "
+        f"{[s_['rt_overflow_gi'] for s_ in stats_fl]}, GI traced frames "
+        f"{stats_fl[-1]['gi_traced_frames']}, K3 capped: GI bounce "
+        f"{share('rt_k3_lanes_gi', 'rt_k3_capped_gi')}, GI NEE "
+        f"{share('rt_k3_lanes_gi_nee', 'rt_k3_capped_gi_nee')}, specular "
+        f"{share('rt_k3_lanes_spec', 'rt_k3_capped_spec')}, specular NEE "
+        f"{share('rt_k3_lanes_spec_nee', 'rt_k3_capped_spec_nee')}; specular lanes past CAP per "
+        f"frame {[s_['spec_past_cap'] for s_ in stats_fl]}; host syncs in RTXDIGI / "
+        f"SpecularIndirect over the {n_frames} frames {syncs}; png {png_fl}")
+    log(f"phase15 per-pass stream ms (CUDA events, median of frames 2-{n_frames}): "
+        f"{json.dumps(pass_ms_fl)}")
+    assert tuple(ldr.shape) == (1080, 1920, 3) and ldr.dtype == torch.uint8
+    assert bool(torch.isfinite(hdr).all()), "non-finite HDR"
+    assert passes_fl == ["Culling", "Raster", "HZBBuild", "RasterPhase2", "ResolveGBuffer",
+                         "MaskedLayer", "IBL", "RTXDI", "RTXDIGI", "Denoise", "SpecularIndirect",
+                         "DeferredLighting", "Sky", "Transparent", "TAA", "AutoExposure",
+                         "Bloom", "Tonemap"], passes_fl
+    assert launches_fl["K1"] >= 3 * n_frames and launches_fl["K2"] >= n_frames, launches_fl
+    assert launches_fl["K4"] >= 3 * n_frames and launches_fl["K3"] >= 4 * n_frames, launches_fl
+    assert launches_fl["K5"] == 0 and launches_fl["K6"] == 0, launches_fl
+    assert stats_fl[-1]["gi_traced_frames"] == n_frames // 2
+    del r, hdr, ldr
+
+    assert not late_failures, late_failures
     jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not jax_mods, f"the port loaded jax: {jax_mods[:5]}"
     ref_mods = sorted(m for m in sys.modules
@@ -596,10 +803,12 @@ def main():
 
     def entry(name, source, replaces, key, err, ms, plain_ms, bnd, main=None, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=(main or launches_rx)[key], max_abs_err=err, ms=ms,
+                    launches=(main or launches_fl)[key], max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
                     launches_simple_path=launches[key], launches_restir_path=launches_rx[key],
-                    launches_normal_basic=launches_nb[key], **extra)
+                    launches_normal_basic=launches_nb[key],
+                    launches_flagship_path=launches_fl[key],
+                    launches_flagship_k6_route=launches_k6[key], **extra)
 
     kernels_line = {"kernels": [
         entry("raster_resolve_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
@@ -618,7 +827,15 @@ def main():
         entry("raster_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
               "hobbyrenderer_tpu/ops/raster_pallas.py:148", "K5", k5_main["err"],
               k5_main["ms"], k5_main["plain_ms"], k5_main["bound"], main=launches_nb,
-              depth_visid={k: k5_runs[False][k] for k in ("ms", "plain_ms")})]}
+              depth_visid={k: k5_runs[False][k] for k in ("ms", "plain_ms")}),
+        entry("closest_hit_blocks", "hobbyrenderer_tpu_torch/csrc/closest_blocks.cu",
+              "hobbyrenderer_tpu/ops/trace.py:64", "K6", k6_main["err"], k6_main["ms"],
+              k6_main["plain_ms"], k6_main["bound"], main=launches_k6,
+              ray_sets={x["name"]: dict(blocks=x["blocks"], lanes=x["lanes"], ms=x["ms"],
+                                        plain_ms=x["plain_ms"], k3_ms=x["k3_ms"],
+                                        bound_ms=x["bound"][0], overflowed=x["ovf_blocks"],
+                                        lanes_checked_against_k3=x["clean"])
+                        for x in k6_rows})]}
     log(f"chip_smoke total seconds: {time.perf_counter() - t_start:.1f}")
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

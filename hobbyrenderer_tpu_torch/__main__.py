@@ -9,6 +9,8 @@ Usage:
         --direct-mode restir                      # ReSTIR DI + RELAX
     python -m hobbyrenderer_tpu_torch --scene stress --frames 8 \
         --mode normal_basic --indirect-mode ddgi  # CSM shadows + DDGI
+    python -m hobbyrenderer_tpu_torch --scene stress --frames 8 \
+        --direct-mode restir --indirect-mode restir   # the flagship frame
 """
 
 from __future__ import annotations
@@ -36,8 +38,11 @@ def main(argv=None):
     p.add_argument("--direct-mode", type=str, default="simple",
                    choices=("simple", "restir"))
     p.add_argument("--indirect-mode", type=str, default="none",
-                   help="ported: 'none', and 'ssgi' or 'ddgi' with --mode normal_basic; "
+                   help="ported: 'none' and 'restir' (ReSTIR GI + traced specular) with "
+                        "--mode normal, 'none', 'ssgi' and 'ddgi' with --mode normal_basic; "
                         "others raise NotImplementedError")
+    p.add_argument("--no-specular-indirect", dest="specular_indirect", action="store_false",
+                   help="disable the traced specular pass of --indirect-mode restir")
     p.add_argument("--restir-quality", default="balanced",
                    choices=("highperf", "balanced", "highquality"))
     p.add_argument("--denoiser", type=str, default="relax", choices=("relax", "reblur"))
@@ -52,6 +57,7 @@ def main(argv=None):
                  cache_dir=a.cache_dir, seed=a.seed, shadow_scale=a.shadow_scale,
                  direct_mode=a.direct_mode, indirect_mode=a.indirect_mode,
                  restir_quality=a.restir_quality, denoiser=a.denoiser, regir=a.regir,
+                 specular_indirect=a.specular_indirect,
                  keep_hdr=bool(a.screenshot and a.screenshot.lower().endswith(".hdr")))
     from hobbyrenderer_tpu_torch.renderer import Renderer
     r = Renderer(cfg, device=a.device)

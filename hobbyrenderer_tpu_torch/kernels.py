@@ -1,6 +1,6 @@
 """Build and bind the package's hand-written CUDA kernels (csrc/*.cu:
 K1 and K5 in raster_resolve.cu, K2 restir_candidates.cu, K3 bvh16_walk.cu,
-K4 beam_any_hit.cu).
+K4 beam_any_hit.cu, K6 closest_blocks.cu).
 
 The sources have a plain C interface. At first use each is compiled by its
 own ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false`` (all at
@@ -30,7 +30,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SOURCES = ("raster_resolve.cu", "beam_any_hit.cu", "restir_candidates.cu",
-           "bvh16_walk.cu")
+           "bvh16_walk.cu", "closest_blocks.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 
@@ -52,6 +52,8 @@ _SIGNATURES = {
     # table, o, d, tmax, best_t, best_tri, steps, R, I, M, any_hit,
     # max_steps, t_min, stream
     "hr_bvh16_walk": (_VP,) * 7 + (_I,) * 5 + (_F, _VP),
+    # rays, table, t, tri, u, v, front, ovf, T, N, t_min, stream
+    "hr_closest_hit_blocks": (_VP,) * 8 + (_I, _I, _F, _VP),
 }
 
 

@@ -8,7 +8,16 @@ TAA -> AutoExposure -> Bloom -> Tonemap.
 
 With ``direct_mode="restir"`` SunShadow is off and RTXDI + Denoise run after
 IBL (16 passes): ReSTIR DI (ops/restir.py) feeds DeferredLighting's direct
-term through the RELAX/REBLUR denoiser (ops/denoise.py).
+term through the RELAX/REBLUR denoiser (ops/denoise.py). With
+``indirect_mode="restir"`` RTXDIGI (ReSTIR GI, ops/restir_gi.py) runs after
+RTXDI and SpecularIndirect (traced reflections, ops/specular.py, unless
+``specular_indirect`` is off) before DeferredLighting; both restir modes
+together are the flagship frame's 18 passes:
+
+Culling -> Raster -> HZBBuild -> RasterPhase2 -> ResolveGBuffer ->
+MaskedLayer -> IBL -> RTXDI -> RTXDIGI -> Denoise -> SpecularIndirect ->
+DeferredLighting -> Sky -> Transparent -> TAA -> AutoExposure -> Bloom ->
+Tonemap.
 
 NormalBasic replaces SunShadow with ShadowCSM (cascaded shadow maps times
 screen-space contact shadows, ops/csm.py and ops/sss.py) and ignores
@@ -16,11 +25,14 @@ screen-space contact shadows, ops/csm.py and ops/sss.py) and ignores
 (ops/ssgi.py) before DeferredLighting.
 
 Raster passes go through the tile-raster kernel K1 (ops/raster_kernel.py),
-the shadow atlas through its depth-only sibling K5, SunShadow and the RTXDI
-winner rays through the any-hit kernel K4 (ops/beam.py), RTXDI's candidates
-through the candidate kernel K2 (ops/restir_kernel.py), and its straggler
-rays and the DDGI probe and NEE rays through the bvh16 walk K3
-(ops/bvh16.py)."""
+the shadow atlas through its depth-only sibling K5, SunShadow, the RTXDI
+winner rays and the GI sample visibility through the any-hit kernel K4
+(ops/beam.py), RTXDI's candidates through the candidate kernel K2
+(ops/restir_kernel.py), and its straggler rays, the DDGI probe rays, the
+GI bounce and reflection rays and every NEE ray through the bvh16 walk K3
+(ops/bvh16.py), as on the JAX package's TPU default. The sorted-block
+closest-hit kernel K6 (ops/trace_kernel.py) is the route that
+``closest_hit_auto(..., force_kernel=True)`` takes; no pass asks for it."""
 
 from __future__ import annotations
 
@@ -42,8 +54,10 @@ from hobbyrenderer_tpu_torch.ops import ibl as iblops
 from hobbyrenderer_tpu_torch.ops import post as postops
 from hobbyrenderer_tpu_torch.ops import raster as rasterops
 from hobbyrenderer_tpu_torch.ops import restir as restirops
+from hobbyrenderer_tpu_torch.ops import restir_gi as giops
 from hobbyrenderer_tpu_torch.ops import sampling as smp
 from hobbyrenderer_tpu_torch.ops import shading as shadeops
+from hobbyrenderer_tpu_torch.ops import specular as specops
 from hobbyrenderer_tpu_torch.ops import sky as skyops
 from hobbyrenderer_tpu_torch.ops import ssgi as ssgiops
 from hobbyrenderer_tpu_torch.ops import sss as sssops
@@ -53,6 +67,14 @@ from hobbyrenderer_tpu_torch.ops.resize import resize_bilinear
 from hobbyrenderer_tpu_torch.ops.upsample import joint_bilateral_upsample
 from hobbyrenderer_tpu_torch.ops.restir_presets import get_preset
 from hobbyrenderer_tpu_torch.utils.rng import pcg3d, uniform_from_bits
+
+GI_SCALE = 4           # ReSTIR GI grid divisor
+GI_TRACE_STEPS = 512   # the bounce rays' 4-ary step budget (K3: 128 steps)
+# the GI and specular counters of Renderer.stats(), per frame (device scalars)
+GI_STATS = ("rt_overflow_gi", "rt_k3_lanes_gi", "rt_k3_capped_gi", "rt_k3_lanes_gi_nee",
+            "rt_k3_capped_gi_nee")
+SPEC_STATS = ("rt_k3_lanes_spec", "rt_k3_capped_spec", "rt_k3_lanes_spec_nee",
+              "rt_k3_capped_spec_nee", "spec_past_cap")
 
 
 def _scene_sun_dir(ctx):
@@ -73,9 +95,12 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
                          shadow_scale: int = 2, direct_mode: str = "simple",
                          indirect_mode: str = "none",
                          restir_quality: str = "balanced",
-                         denoiser_profile: str = "relax") -> RenderGraph:
+                         denoiser_profile: str = "relax",
+                         specular_indirect: bool = False) -> RenderGraph:
     g = RenderGraph()
     use_restir = direct_mode == "restir" and mode == RenderingMode.NORMAL
+    use_restir_gi = indirect_mode == "restir" and mode == RenderingMode.NORMAL
+    use_spec = specular_indirect and use_restir_gi
     use_ddgi = indirect_mode == "ddgi"
     use_ssgi = indirect_mode == "ssgi"
     rq = get_preset(restir_quality)
@@ -273,6 +298,34 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         res["rt_k3_lanes_di"] = so["k3_lanes"]
         res["rt_k3_capped_di"] = so["k3_capped"]
 
+    if not use_restir:
+        g.get("RTXDI").enabled = False
+
+    @g.add
+    @render_pass("RTXDIGI", reads=("gbuffer", "restir_gi_reservoir", "sky_irradiance"),
+                 writes=("restir_indirect", "restir_gi_reservoir", "gi_traced") + GI_STATS,
+                 persistent=("restir_gi_reservoir",))
+    def _rtxdi_gi(ctx, res):
+        """ReSTIR GI chain at quarter resolution; bounce hits add the
+        sky-SH diffuse exitance."""
+        so = {}
+        ind, new_res = giops.restir_gi(
+            ctx.gpu, ctx.rt, res["gbuffer"], ctx.vc, ctx.settings, res["restir_gi_reservoir"],
+            ctx.vc["frame_index"], scale=GI_SCALE, half_rate=rq.gi_half_rate,
+            trace_max_steps=GI_TRACE_STEPS, skip_pool_emissive=use_restir, stats_out=so,
+            sky_sh=res["sky_irradiance"],
+            ibl_scale=ctx.settings.ibl_intensity * ctx.settings.ambient_scale,
+            spatial_taps=rq.gi_spatial_taps, m_clamp=rq.gi_m_clamp)
+        res["restir_indirect"] = ind
+        res["restir_gi_reservoir"] = new_res
+        res["gi_traced"] = so["traced"]
+        for name, key in zip(GI_STATS, ("overflow", "bounce_lanes", "bounce_capped",
+                                        "nee_lanes", "nee_capped")):
+            res[name] = so[key]
+
+    if not use_restir_gi:
+        g.get("RTXDIGI").enabled = False
+
     @g.add
     @render_pass("Denoise", reads=("restir_direct", "gbuffer", "denoise_state"),
                  writes=("restir_direct", "denoise_state"), persistent=("denoise_state",))
@@ -284,7 +337,6 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         res["denoise_state"] = st
 
     if not use_restir:
-        g.get("RTXDI").enabled = False
         g.get("Denoise").enabled = False
 
     @g.add
@@ -339,11 +391,37 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         g.get("SSGI").enabled = False
 
     @g.add
+    @render_pass("SpecularIndirect", reads=("gbuffer", "spec_state", "sky_irradiance"),
+                 writes=("spec_indirect", "spec_weight", "spec_state") + SPEC_STATS,
+                 persistent=("spec_state",))
+    def _spec_indirect(ctx, res):
+        """GGX-VNDF reflection rays for glossy pixels: they replace the
+        split-sum specular ambient where the roughness permits tracing."""
+        so = {}
+        spec, w_blend, st = specops.specular_indirect(
+            ctx.gpu, ctx.rt, res["gbuffer"], ctx.vc, ctx.settings, res["spec_state"],
+            ctx.vc["frame_index"], sun_dir=_scene_sun_dir(ctx),
+            skip_pool_emissive=use_restir, sky_sh=res["sky_irradiance"],
+            ibl_scale=ctx.settings.ibl_intensity * ctx.settings.ambient_scale,
+            half_rate=rq.spec_half_rate, stats_out=so)
+        res["spec_indirect"] = spec
+        res["spec_weight"] = w_blend
+        res["spec_state"] = st
+        for name, key in zip(SPEC_STATS, ("lanes", "capped", "nee_lanes", "nee_capped",
+                                          "past_cap")):
+            res[name] = so[key]
+
+    if not use_spec:
+        g.get("SpecularIndirect").enabled = False
+
+    @g.add
     @render_pass("DeferredLighting",
                  reads=("gbuffer", "sky_irradiance")
                  + (("restir_direct",) if use_restir else ("sun_shadow",))
+                 + (("spec_indirect", "spec_weight") if use_spec else ())
                  + (("ddgi_indirect",) if use_ddgi else ())
-                 + (("ssgi_indirect",) if use_ssgi else ()),
+                 + (("ssgi_indirect",) if use_ssgi else ())
+                 + (("restir_indirect",) if use_restir_gi else ()),
                  writes=("hdr",))
     def _deferred(ctx, res):
         gb = res["gbuffer"]
@@ -364,10 +442,15 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         ibl_scale = ctx.settings.ibl_intensity * ctx.settings.ambient_scale
         ambient = iblops.ibl_ambient(res["sky_irradiance"], gb.normal, v, gb.albedo,
                                      metal, rough, _scene_sun_dir(ctx), ctx.settings,
-                                     intensity=ibl_scale)
+                                     intensity=ibl_scale,
+                                     spec_suppress=res["spec_weight"] if use_spec else None)
         hdr = direct + ambient + gb.emissive
+        if use_spec:
+            hdr = hdr + res["spec_indirect"]
         if use_ssgi:
             hdr = hdr + res["ssgi_indirect"]
+        if use_restir_gi:
+            hdr = hdr + res["restir_indirect"]
         if use_ddgi:
             hdr = hdr + res["ddgi_indirect"]
         res["hdr"] = torch.where(gb.valid[..., None], hdr, 0.0)
@@ -431,11 +514,12 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
 
 
 def initial_frame_state(width: int, height: int, device, use_restir: bool = False,
-                        indirect_mode: str = "none",
-                        scene_bounds=None) -> Dict[str, object]:
+                        indirect_mode: str = "none", scene_bounds=None,
+                        specular_indirect: bool = False) -> Dict[str, object]:
     """Persistent resources seed: exposure, HZB, TAA history; under ReSTIR
     the light reservoirs and the denoiser history; the SSGI denoiser
-    history or the DDGI volume (fitted to ``scene_bounds``)."""
+    history, the DDGI volume (fitted to ``scene_bounds``), or the GI
+    reservoirs and the specular denoiser history."""
     h0, w0, levels = hzbops.hzb_sizes(width, height)
     state = {
         "exposure": torch.tensor(1.0, dtype=torch.float32, device=device),
@@ -452,6 +536,11 @@ def initial_frame_state(width: int, height: int, device, use_restir: bool = Fals
     if indirect_mode == "ddgi":
         lo, hi = scene_bounds
         state["ddgi_volume"] = ddgiops.ddgi_init(lo, hi, device)
+    if indirect_mode == "restir":
+        state["restir_gi_reservoir"] = giops.gi_reservoir_init(height // GI_SCALE,
+                                                               width // GI_SCALE, device)
+        if specular_indirect:
+            state["spec_state"] = specops.spec_state_init(height, width, device)
     return state
 
 
@@ -461,11 +550,13 @@ class DeferredRenderer:
     def __init__(self, gpu, width: int, height: int, rt, shadow_scale: int,
                  mode: str = RenderingMode.NORMAL, direct_mode: str = "simple",
                  indirect_mode: str = "none", restir_quality: str = "balanced",
-                 denoiser_profile: str = "relax"):
+                 denoiser_profile: str = "relax", specular_indirect: bool = False):
         self.width, self.height = width, height
         self.rt = rt
         self.use_restir = direct_mode == "restir" and mode == RenderingMode.NORMAL
         self.use_ddgi = indirect_mode == "ddgi"
+        self.use_restir_gi = indirect_mode == "restir" and mode == RenderingMode.NORMAL
+        self.use_spec = specular_indirect and self.use_restir_gi
         m = gpu.meta
         cap = max(int(gpu.lod0_pair_capacity), 1)
         self.graph = build_deferred_graph(
@@ -477,13 +568,15 @@ class DeferredRenderer:
                 csmops.CASCADE_LOD_BIAS[:csmops.NUM_CASCADES]),
             shadow_scale=shadow_scale, direct_mode=direct_mode,
             indirect_mode=indirect_mode, restir_quality=restir_quality,
-            denoiser_profile=denoiser_profile, scene_radius=m["scene_radius"])
+            denoiser_profile=denoiser_profile, scene_radius=m["scene_radius"],
+            specular_indirect=specular_indirect)
         self.state = initial_frame_state(width, height, gpu.device, self.use_restir,
-                                         indirect_mode, m["scene_bounds"])
+                                         indirect_mode, m["scene_bounds"], self.use_spec)
         self.last_stats = {}
         self.keep = ()              # extra resource names to keep per frame
         self.last_resources = {}
         self.ddgi_traced_frames = 0
+        self.gi_traced_frames = 0
 
     def render(self, gpu, vc, settings, dt: float = 1 / 60):
         ctx = FrameContext(gpu=gpu, vc=vc, settings=settings, dt=dt, rt=self.rt)
@@ -495,6 +588,10 @@ class DeferredRenderer:
             outputs += ["rt_overflow_sun"]
         if self.use_ddgi:
             outputs += ["ddgi_traced", "rt_k3_lanes_ddgi", "rt_k3_capped_ddgi"]
+        if self.use_restir_gi:
+            outputs += ["gi_traced", *GI_STATS]
+        if self.use_spec:
+            outputs += list(SPEC_STATS)
         o = self.graph.execute(ctx, self.state, outputs=outputs + list(self.keep))
         self.last_resources = {k: o[k] for k in self.keep}
         self.last_stats = {"raster_overflow": o["raster_overflow"],
@@ -517,4 +614,14 @@ class DeferredRenderer:
             self.last_stats.update(ddgi_traced_frames=self.ddgi_traced_frames,
                                    rt_k3_lanes_ddgi=o["rt_k3_lanes_ddgi"],
                                    rt_k3_capped_ddgi=o["rt_k3_capped_ddgi"])
+        if self.use_restir_gi:
+            # GI traced frames so far; this frame's final-visibility K4
+            # overflow, the bounce and NEE walks' K3 lanes and capped lanes
+            self.gi_traced_frames += o["gi_traced"]
+            self.last_stats["gi_traced_frames"] = self.gi_traced_frames
+            self.last_stats.update({k: o[k] for k in GI_STATS})
+        if self.use_spec:
+            # the reflection and NEE walks, and the glossy lanes past the
+            # compaction capacity (they read the sky)
+            self.last_stats.update({k: o[k] for k in SPEC_STATS})
         return o["ldr"]

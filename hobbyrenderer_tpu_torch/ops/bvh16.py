@@ -333,14 +333,15 @@ def _t_max(t_max, R, dev):
 
 
 def bvh16_closest_hit(bvh: BVH16, o, d, t_min=1e-4, t_max=None,
-                      max_steps: int = None) -> HitRecord:
-    """Closest hit; u/v/front recomputed once from the winning record."""
+                      max_steps: int = None, return_capped: bool = False):
+    """Closest hit; u/v/front recomputed once from the winning record. With
+    ``return_capped`` also the rays that spent the whole step budget (those
+    the cap may have cut short: an upper bound on the capped rays)."""
     R = o.shape[0]
     tm = _t_max(t_max, R, o.device)
-    best_t, best_tri, _ = bvh16_walk(bvh.table, o.contiguous(), d.contiguous(), tm,
-                                     any_hit=False,
-                                     max_steps=UNCAPPED_STEPS if max_steps is None
-                                     else max_steps, t_min=t_min)
+    steps_cap = UNCAPPED_STEPS if max_steps is None else max_steps
+    best_t, best_tri, steps = bvh16_walk(bvh.table, o.contiguous(), d.contiguous(), tm,
+                                         any_hit=False, max_steps=steps_cap, t_min=t_min)
     miss = best_tri < 0
     rec = bvh.recs[bvh.slot_of[torch.clamp(best_tri, min=0).to(torch.int64)]]
     v0, e1, e2 = rec[:, 0:3], rec[:, 3:6], rec[:, 6:9]
@@ -351,9 +352,10 @@ def bvh16_closest_hit(bvh: BVH16, o, d, t_min=1e-4, t_max=None,
     q = torch.linalg.cross(s, e1, dim=-1)
     bu = torch.sum(s * p, -1) * inv_det
     bv = torch.sum(d * q, -1) * inv_det
-    return HitRecord(t=torch.where(miss, INF, best_t), tri=best_tri,
-                     u=torch.where(miss, 0.0, bu), v=torch.where(miss, 0.0, bv),
-                     front=~miss & (det > 0))
+    rec = HitRecord(t=torch.where(miss, INF, best_t), tri=best_tri,
+                    u=torch.where(miss, 0.0, bu), v=torch.where(miss, 0.0, bv),
+                    front=~miss & (det > 0))
+    return (rec, steps >= steps_cap) if return_capped else rec
 
 
 def bvh16_any_hit(bvh: BVH16, o, d, t_min=1e-4, t_max=None, max_steps: int = None,

@@ -37,9 +37,16 @@ def denoise_init(h: int, w: int, device) -> DenoiseState:
                         normal=torch.zeros((h, w, 3), device=device))
 
 
-def temporal_accumulate(signal, gb, state: DenoiseState, max_history: float = 32.0):
+def temporal_accumulate(signal, gb, state: DenoiseState, max_history: float = 32.0,
+                        sample_valid=None):
     """Reproject, validate by depth + normal, blend with 1/(history+1),
-    accumulate luminance moments. Returns (color, variance, new state)."""
+    accumulate luminance moments. Returns (color, variance, new state).
+
+    ``sample_valid`` (H, W) bool, optional: the lanes that traced a fresh
+    sample this frame (half-rate checkerboard tracing). The others carry
+    the reprojected history unchanged; where they have no history either,
+    the signal is rebuilt from the horizontal neighbours (which traced, the
+    parity alternating along x) and the history is set to 0, "no data"."""
     H, W = signal.shape[0], signal.shape[1]
     dev = signal.device
     xs = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
@@ -63,6 +70,18 @@ def temporal_accumulate(signal, gb, state: DenoiseState, max_history: float = 32
     lum = tm.luminance(signal)
     mom_new = torch.stack([lum, lum * lum], -1)
     moments = torch.where(valid[..., None], pm + (mom_new - pm) * a, mom_new)
+    if sample_valid is not None:
+        keep = valid & ~sample_valid           # history-only lanes
+        color = torch.where(keep[..., None], pc, color)
+        moments = torch.where(keep[..., None], pm, moments)
+        hole = ~valid & ~sample_valid
+        left = torch.cat([signal[:, :1], signal[:, :-1]], 1)
+        right = torch.cat([signal[:, 1:], signal[:, -1:]], 1)
+        recon = 0.5 * (left + right)
+        color = torch.where(hole[..., None], recon, color)
+        lum_r = tm.luminance(recon)
+        moments = torch.where(hole[..., None], torch.stack([lum_r, lum_r * lum_r], -1), moments)
+        hist = torch.where(keep, ph, torch.where(sample_valid, hist, 0.0))
     new_state = DenoiseState(color=color, moments=moments, history=hist,
                              depth=gb.depth, normal=gb.normal)
     var = torch.clamp(moments[..., 1] - moments[..., 0] ** 2, min=0.0)

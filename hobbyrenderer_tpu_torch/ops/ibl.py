@@ -99,8 +99,10 @@ def env_brdf(ndv, rough):
 
 
 def ibl_ambient(sh, n, v, albedo, metallic, roughness, sun_dir, settings,
-                intensity=1.0):
-    """Diffuse SH irradiance + roughness-aware specular ambient."""
+                intensity=1.0, spec_suppress=None):
+    """Diffuse SH irradiance + roughness-aware specular ambient.
+    ``spec_suppress`` (H, W) in [0, 1], optional: the share of the specular
+    term that traced specular indirect (ops/specular.py) replaces."""
     diffuse_c, f0, _alpha = brdf_params(albedo, metallic, roughness)
     diffuse = diffuse_c * torch.clamp(sample_irradiance(sh, n), min=0.0)
     r = tm.reflect(-v, n)
@@ -109,4 +111,7 @@ def ibl_ambient(sh, n, v, albedo, metallic, roughness, sun_dir, settings,
     spec_env = env_r * (1 - rough) + torch.clamp(sample_irradiance(sh, r), min=0.0) * rough
     ndv = torch.clamp(torch.sum(n * v, -1, keepdim=True), min=1e-4)
     scale, bias = env_brdf(ndv, rough)
-    return (diffuse + spec_env * (f0 * scale + bias)) * intensity
+    spec = spec_env * (f0 * scale + bias)
+    if spec_suppress is not None:
+        spec = spec * (1.0 - spec_suppress)[..., None]
+    return (diffuse + spec) * intensity

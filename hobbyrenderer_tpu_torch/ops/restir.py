@@ -179,16 +179,17 @@ def _winner_occlusion(rt, o, L_vis, tmax, shoot, y_ids, H: int, W: int,
     return torch.where(match, occ_b.reshape(R), occ_m)
 
 
-def _tap_offsets(spatial_taps: int, frame: int):
+def _tap_offsets(spatial_taps: int, frame: int, salt: int = 0x5EED,
+                 radius: float = SPATIAL_RADIUS):
     """Frame-wide spatial tap offsets (dx, dy) as host ints: counter RNG on
     the CPU, one offset per tap (the same draws as the JAX package's device
-    scalars)."""
+    scalars; ReSTIR GI passes its own salt and radius)."""
     out = []
     for k in range(spatial_taps):
-        kb = pcg3d(torch.tensor([[k + 1, frame, 0x5EED]], dtype=torch.int64))[0]
+        kb = pcg3d(torch.tensor([[k + 1, frame, salt]], dtype=torch.int64))[0]
         u_a, u_b = uniform_from_bits(kb[0]), uniform_from_bits(kb[1])
         ang = u_a * (2 * math.pi)
-        rad_px = 1.0 + torch.sqrt(u_b) * (SPATIAL_RADIUS - 1.0)
+        rad_px = 1.0 + torch.sqrt(u_b) * (radius - 1.0)
         out.append((int(torch.round(torch.cos(ang) * rad_px)),
                     int(torch.round(torch.sin(ang) * rad_px))))
     return out

@@ -27,13 +27,16 @@ def pad_edges(x, pad: int):
                       x[:, -1:].expand(-1, pad, *x.shape[2:])], 1)
 
 
-def warp_image(img, motion, halo: int = 32, bilinear: bool = True):
+def warp_image(img, motion, halo: int = 32, radius: int = WARP_RADIUS,
+               col_pad: int = WARP_COL_PAD, bilinear: bool = True):
     """img (H, W, C) sampled at pixel_center + motion (H, W, 2), bilinearly
     or (``bilinear=False``) at the nearest texel; integer data rides as f32
-    with bilinear=False (one-hot weights move values exactly)."""
+    with bilinear=False (one-hot weights move values exactly). ``radius`` is
+    the per-pixel residual reach after the global shift, ``col_pad`` bounds
+    the global column shift."""
     H, W, Cc = img.shape
-    R = WARP_RADIUS
-    col_pad = WARP_COL_PAD
+    R = radius
+    assert halo - R >= 1, "halo must exceed the residual radius"
     dev = img.device
     xs = torch.arange(W, dtype=torch.float32, device=dev)
     ys = torch.arange(H, dtype=torch.float32, device=dev)

@@ -1,7 +1,8 @@
 """Per-pass profile of the port's frame on the GPU.
 
     python -m hobbyrenderer_tpu_torch.profile_frame --scene stress \
-        [--direct-mode restir] [--mode normal_basic --indirect-mode ddgi] [--frames 8]
+        [--direct-mode restir] [--indirect-mode restir] \
+        [--mode normal_basic --indirect-mode ddgi] [--frames 8]
 
 Renders ``--frames`` frames and prints, per pass: the stream time (CUDA
 events around each pass, median over the frames after the first) and the
@@ -20,30 +21,45 @@ import json
 import statistics
 import subprocess
 import time
+import warnings
 
 import torch
 
 
-def time_passes(graph, strict=()):
+def time_passes(graph, strict=(), watch=(), syncs=None):
     """Wrap every enabled pass of ``graph`` with CUDA events recorded on the
     stream (no host sync); the passes named in ``strict`` also run under
     ``torch.cuda.set_sync_debug_mode("error")``, so a host sync inside
-    them raises. Returns {pass: [(start, end) event pairs, one per frame]}."""
+    them raises, and those in ``watch`` under "warn", counting their host
+    syncs into ``syncs`` {pass: n}. Returns {pass: [(start, end) event
+    pairs, one per frame]}."""
     events = {}
 
     def wrap(ps):
-        fn, check = ps.fn, ps.name in strict
+        fn = ps.fn
 
         def run(ctx, res):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
-            if check:
+            if ps.name in watch:
+                with warnings.catch_warnings(record=True) as seen:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        fn(ctx, res)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                if syncs is not None:
+                    syncs[ps.name] = syncs.get(ps.name, 0) + sum(
+                        "synchroniz" in str(w.message) for w in seen)
+            elif ps.name in strict:
                 torch.cuda.set_sync_debug_mode("error")
-            try:
-                fn(ctx, res)
-            finally:
-                if check:
+                try:
+                    fn(ctx, res)
+                finally:
                     torch.cuda.set_sync_debug_mode("default")
+            else:
+                fn(ctx, res)
             e1.record()
             events.setdefault(ps.name, []).append((e0, e1))
         return run
@@ -66,7 +82,8 @@ def main(argv=None):
     p.add_argument("--height", type=int, default=1080)
     p.add_argument("--direct-mode", default="simple", choices=("simple", "restir"))
     p.add_argument("--mode", default="normal", choices=("normal", "normal_basic"))
-    p.add_argument("--indirect-mode", default="none", choices=("none", "ssgi", "ddgi"))
+    p.add_argument("--indirect-mode", default="none", choices=("none", "ssgi", "ddgi", "restir"))
+    p.add_argument("--no-specular-indirect", dest="specular_indirect", action="store_false")
     p.add_argument("--frames", type=int, default=8)
     p.add_argument("--cache-dir", default=".hr_cache")
     a = p.parse_args(argv)
@@ -80,7 +97,8 @@ def main(argv=None):
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
     r = Renderer(Config(scene=a.scene, width=a.width, height=a.height, mode=a.mode,
                         direct_mode=a.direct_mode, indirect_mode=a.indirect_mode,
-                        cache_dir=a.cache_dir), device="cuda")
+                        specular_indirect=a.specular_indirect, cache_dir=a.cache_dir),
+                 device="cuda")
     names = [ps.name for ps in r.graph.passes if ps.enabled]
     events = time_passes(r.graph)
     frame_ms = []
@@ -113,6 +131,7 @@ def main(argv=None):
     print("per-pass " + json.dumps(rows))
     print(json.dumps({"scene": a.scene, "size": [a.width, a.height], "mode": a.mode,
                       "direct_mode": a.direct_mode, "indirect_mode": a.indirect_mode,
+                      "specular_indirect": a.specular_indirect,
                       "frame_ms": [round(x, 2) for x in frame_ms],
                       "median_ms_after_first": round(statistics.median(frame_ms[1:]), 2),
                       "kernels_per_frame": round(len(kern) / 3),

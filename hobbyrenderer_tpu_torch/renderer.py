@@ -3,9 +3,11 @@ explicit torch device (counterpart of hobbyrenderer_tpu/renderer.py).
 
 Ported: the Normal-mode frame with simple direct lighting or ReSTIR DI
 (``direct_mode="restir"``, every ``restir_quality`` preset, both
-denoisers) and no indirect mode, and the NormalBasic frame (cascaded
-shadow maps) with ``indirect_mode`` none, ssgi or ddgi; every other option
-raises NotImplementedError naming the ROADMAP slice that brings it."""
+denoisers) and ``indirect_mode`` none or restir (ReSTIR GI, with traced
+specular unless ``specular_indirect`` is off: with ReSTIR DI this is the
+flagship frame), and the NormalBasic frame (cascaded shadow maps) with
+``indirect_mode`` none, ssgi or ddgi; every other option raises
+NotImplementedError naming the ROADMAP slice that brings it."""
 
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from hobbyrenderer_tpu_torch.models.scene_rt import build_scene_rt
 from hobbyrenderer_tpu_torch.scene.gpu import build_scene_gpu, update_instance_transforms
 
 _REGIR = "ROADMAP Queue 1 slice 7 (ReGIR)"
-_LATER = "ROADMAP Queue 1 slice 5+ (options outside the ported Normal and NormalBasic frames)"
+_LATER = "ROADMAP Queue 1 slices 6-7 (options outside the ported Normal and NormalBasic frames)"
+_OTHER_GI = "ROADMAP Queue 1 slice 7 (SHARC; DDGI and SSGI in Normal mode)"
 
 
 def check_config(cfg: Config):
@@ -45,9 +48,12 @@ def check_config(cfg: Config):
     if (cfg.direct_mode or "simple") == "restir" and cfg.denoiser not in ("relax", "reblur"):
         raise ValueError(f"unknown denoiser '{cfg.denoiser}' (relax | reblur)")
     indirect = cfg.indirect_mode or "none"
-    need(indirect == "none" or (cfg.mode == RenderingMode.NORMAL_BASIC
-                                and indirect in ("ssgi", "ddgi")),
-         f"--indirect-mode {cfg.indirect_mode} in --mode {cfg.mode}", _LATER)
+    if cfg.mode == RenderingMode.NORMAL:
+        need(indirect in ("none", "restir"), f"--indirect-mode {cfg.indirect_mode} in "
+             f"--mode {cfg.mode}", _OTHER_GI)
+    else:
+        need(indirect in ("none", "ssgi", "ddgi"), f"--indirect-mode {cfg.indirect_mode} in "
+             f"--mode {cfg.mode}", _OTHER_GI)
     need(cfg.render_scale == 1.0, "--render-scale != 1 (TAA upscaling)", _LATER)
     need(not cfg.tex_streaming, "texture streaming", _LATER)
     need(not (cfg.envmap or cfg.irradiance or cfg.radiance or cfg.brdflut
@@ -111,24 +117,25 @@ class Renderer:
         self.camera_state.restore(self.camera, self._scene_key)
         self.camera_state.start()
         # the JAX Renderer's rule: the traced passes need the RT scene (the
-        # Normal frame's sun shadow or RTXDI, NormalBasic's DDGI); the light
-        # pool and the 16-wide BVH only RTXDI and DDGI
-        ddgi = (cfg.indirect_mode or "none") == "ddgi"
+        # Normal frame's sun shadow, RTXDI or ReSTIR GI, NormalBasic's DDGI);
+        # the light pool and the 16-wide BVH only RTXDI, ReSTIR GI and DDGI
+        traced_gi = (cfg.indirect_mode or "none") in ("ddgi", "restir")
         restir = (cfg.direct_mode or "simple") == "restir" and cfg.mode == RenderingMode.NORMAL
         rt = None
         self.bvh_seconds = 0.0
-        if cfg.mode == RenderingMode.NORMAL or ddgi:
+        if cfg.mode == RenderingMode.NORMAL or traced_gi:
             with PROFILER.scope("Init/BVH"):
                 t0 = time.perf_counter()
                 rt = build_scene_rt(self.scene, self.device,
-                                    gpu=self.gpu if (restir or ddgi) else None)
+                                    gpu=self.gpu if (restir or traced_gi) else None)
                 self.bvh_seconds = time.perf_counter() - t0
         self._model = DeferredRenderer(self.gpu, cfg.render_width, cfg.render_height,
                                        rt=rt, shadow_scale=cfg.shadow_scale, mode=cfg.mode,
                                        direct_mode=cfg.direct_mode or "simple",
                                        indirect_mode=cfg.indirect_mode or "none",
                                        restir_quality=cfg.restir_quality,
-                                       denoiser_profile=cfg.denoiser)
+                                       denoiser_profile=cfg.denoiser,
+                                       specular_indirect=cfg.specular_indirect)
 
     @property
     def graph(self):
