@@ -16,18 +16,29 @@ indirect_mode "restir": ReSTIR GI + traced specular), once to capture its
 GI bounce and reflection rays, which then go through the sorted-block
 route closest_hit_auto(..., force_kernel=True) and its kernel K6 (phase
 13), and 8 frames as the main path (phase 15) — and checks that every
-kernel of each path launched. Any failed check raises: the script then exits nonzero without
-its final line.
+kernel of each path launched. Then the walk-step microbenchmarks K7-K9
+(their entry point `python -m hobbyrenderer_tpu_torch.bench_wkernels`, then
+each against its plain version, phase 16) and the reference path tracer:
+CUDA against CPU at 256x192 on the compacted wavefront (phase 17), its main
+path, bench.py's PT configuration (stress at 960x540, 1 spp, 8 bounces;
+trace_paths under set_sync_debug_mode("error"); the first frame's
+full-width closest-hit and compacted NEE walks held against the plain K3
+walk, phase 18), and ROADMAP item 18: the port's PT references (each
+reference's first compacted 16-spp frame rendered twice, bit-identical)
+against the port's flagship under tests/test_golden.py's gates (phase 19).
+Any failed check raises: the script then exits nonzero without its final
+line.
 
 Kernels: K1 tile raster and K5 depth-only tile raster
 (csrc/raster_resolve.cu), K2 ReSTIR candidates (csrc/restir_candidates.cu),
 K3 bvh16 walk (csrc/bvh16_walk.cu), K4 any hit (csrc/beam_any_hit.cu), K6
-sorted-block closest hit (csrc/closest_blocks.cu). Each one's bound
+sorted-block closest hit (csrc/closest_blocks.cu), K7-K9 the walk-step
+microbenchmarks (csrc/wkernels.cu). Each one's bound
 (bound_ms) is the larger of its bytes (inputs read once, outputs written
 once; of the walks' node tables, K3, K4 and K6, only the rows this run's
 rays read) over 3.35 TB/s and its fp32 operations on this run's data over
-67 TFLOP/s (H100 SXM data sheet). K2, K3, K5 and K6 must equal their plain
-versions bit for bit, in every output.
+67 TFLOP/s (H100 SXM data sheet). K2, K3, K5, K6 and K7-K9 must equal
+their plain versions bit for bit, in every output.
 
 Output, in order: the card's name and power limit, versions, build time,
 one line per phase, the kernels JSON line, and last
@@ -109,12 +120,400 @@ def capture_first_frame(Renderer, Config, rk, beamops):
     return seen
 
 
+def kernel_us(calls, name, reps=20, attempts=3):
+    """Median device time in us of each of ``calls`` (functions that launch
+    one kernel whose name holds ``name``) over ``reps`` rounds that
+    interleave them, from a torch.profiler (CUPTI) trace: the kernel's own
+    run, without the ~3 us a launch adds on the stream. Interleaving keeps
+    the calls under one cache and allocation state. A trace that lost
+    kernels (seen about once in a hundred traces) is taken again."""
+    for f in calls:
+        f()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    k = len(calls)
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                for f in calls:
+                    f()
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name),
+                    key=lambda e: e.time_range.start)
+        if len(ev) == reps * k:
+            return [statistics.median(e.time_range.elapsed_us() for e in ev[i::k])
+                    for i in range(k)]
+        log(f"  profiler trace held {len(ev)} {name} kernels of {reps * k}: taken again")
+    raise AssertionError(f"{attempts} profiler traces lost {name} kernels")
+
+
+def iters_scaling(fn, name, it):
+    """The kernel's own time (ms) at it, it/2 and it/4 iterations, the ratio
+    of the first two, and the marginal ratio (t(it) - t(it/2)) / (t(it/2) -
+    t(it/4)): 2 when every repeat runs, whatever the kernel's fixed cost."""
+    k64, k32, k16 = (t / 1e3 for t in kernel_us(
+        [lambda: fn(it), lambda: fn(it // 2), lambda: fn(it // 4)], name))
+    return k64, k32, k16, k64 / k32, (k64 - k32) / (k32 - k16)
+
+
+def rel_err(got, ref):
+    """Largest relative difference of two all-positive tensors."""
+    return float(((got - ref).abs() / ref.abs()).max())
+
+
+CHECKSUM_RTOL = 1e-5     # sums in another order; a skipped row or step moves it >= 1/64
+
+
+def phase_wkernels(counters_reset, counts):
+    """Phase 16: the step microbenchmarks K7-K9. Their main path is their
+    entry point, `python -m hobbyrenderer_tpu_torch.bench_wkernels`, driven
+    with the counts reset just before; then each kernel against its plain
+    version at the script's shapes (the output bit-exact; the checksum of
+    every fetched value, whose sums run in another order, within
+    CHECKSUM_RTOL), its time per call (CUDA events around queued launches,
+    as the entry point times it), the kernel's own device time at 64, 32 and
+    16 iterations, interleaved in one trace (no repeat may be elided: the ratio 64/32 is gated on each
+    kernel's first variant in the script, where the kernel's fixed ~1.5 us
+    of its own, the id fetch, the CTA ramp and the checksum, weighs least,
+    and the marginal ratio (t64 - t32) / (t32 - t16), which that fixed cost
+    does not touch, on every variant), one step's bytes over the HBM rate,
+    the call's bound (each distinct row or column it fetches read once, its
+    outputs written once) and one PyTorch call that computes the same values
+    (the library figure)."""
+    from hobbyrenderer_tpu_torch import bench_wkernels as bw
+    from hobbyrenderer_tpu_torch.ops import wkernels as wk
+    dev = torch.device("cuda", 0)
+    counters_reset()
+    bw.main([])
+    torch.cuda.synchronize()
+    launches = counts()
+    log(f"phase16 bench_wkernels entry point: launches {launches}")
+    assert launches["K7"] > 0 and launches["K8"] > 0 and launches["K9"] > 0, launches
+    x = bw.make_inputs(dev)
+    it = bw.ITERS
+    rows_out = {}
+    for label, rows, kind in bw.K7_VARIANTS:
+        idx = x["idx_rand"] if kind == "rand" else x["idx_seq"]
+        got, cs = wk.leaf_gather(idx, x["leaf"], rows, it)
+        ref, ref_cs = wk.leaf_gather_reference(idx, x["leaf"], rows, it)
+        torch.cuda.synchronize()
+        mism = int((got != ref).sum())
+        cs_err = rel_err(cs, ref_cs)
+        ms64 = bw.call_ms(lambda: wk.leaf_gather(idx, x["leaf"], rows, it), dev)
+        k64, k32, k16, ratio, marginal = iters_scaling(
+            lambda n: wk.leaf_gather(idx, x["leaf"], rows, n), "leaf_gather_kernel", it)
+        pms = bw.call_ms(lambda: wk.leaf_gather_reference(idx, x["leaf"], rows, it), dev)
+        ids = idx.reshape(-1)[:rows].to(torch.int64)
+        ids_all = ids.repeat(it)
+        lms = bw.call_ms(lambda: x["leaf"].index_select(0, ids_all), dev)
+        step_bytes = rows * wk.LANE * 4 * 2          # one step: each row read and written
+        # the call: each distinct row read once, ids, out and checksum written once
+        n_rows = int(torch.unique(ids).numel())
+        bnd = bound(n_rows * wk.LANE * 4 + nbytes(idx, got) + rows * 4, 0)
+        rows_out[label] = dict(ms=ms64, kernel_ms=k64, ratio=ratio, marginal_ratio=marginal,
+                               plain_ms=pms, library_ms=lms, bound=bnd,
+                               err=float((got - ref).abs().max()), checksum_rel_err=cs_err)
+        log(f"phase16 K7 {label}: mismatches vs plain {mism}, checksum rel err {cs_err:.3g}; "
+            f"call {ms64:.4f} ms ({ms64 / it * 1e3:.3f} us/step) at {it} iters; kernel "
+            f"{k64 * 1e3:.2f} us at {it}, {k32 * 1e3:.2f} us at {it // 2}, {k16 * 1e3:.2f} us at "
+            f"{it // 4}, ratio {ratio:.3f}, marginal ratio {marginal:.3f} "
+            f"({k64 / it * 1e3:.3f} us/step); "
+            f"one step's bytes {step_bytes / HBM_BYTES_PER_S * 1e6:.3f} us; call bound "
+            f"{bnd[0] * 1e3:.3f} us ({n_rows} distinct rows); plain {pms:.3f} ms; "
+            f"library index_select of the {it}x{rows} rows {lms:.4f} ms "
+            f"({lms / it * 1e3:.3f} us/step)")
+        assert mism == 0, f"K7 {label} is not bit-exact with its plain version"
+        assert cs_err <= CHECKSUM_RTOL, f"K7 {label}: checksum disagrees with the plain version"
+        if label == bw.K7_VARIANTS[0][0]:       # the script's first variant (docstring)
+            assert 1.8 <= ratio <= 2.2, f"K7 {label}: time does not scale with iters"
+        assert 1.8 <= marginal <= 2.2, f"K7 {label}: marginal time does not scale with iters"
+    for key, label, fn, ref_fn, idx, tab, Ip in (
+            ("K8", f"Ip={bw.IP}", wk.int_fetch, wk.int_fetch_reference, x["idx_ip"], x["tab"],
+             bw.IP),
+            ("K8", "Ip=512", wk.int_fetch, wk.int_fetch_reference, x["idx_512"], x["tab512"],
+             512),
+            ("K9", f"Ip={bw.IP}", wk.int_fetch_hc, wk.int_fetch_hc_reference, x["idx_ip"],
+             x["tab_hc"], bw.IP)):
+        got, cs = fn(idx, tab, it, Ip)
+        ref, ref_cs = ref_fn(idx, tab, it, Ip)
+        torch.cuda.synchronize()
+        mism = int((got != ref).sum())
+        cs_err = rel_err(cs, ref_cs)
+        ms64 = bw.call_ms(lambda: fn(idx, tab, it, Ip), dev)
+        k64, k32, k16, ratio, marginal = iters_scaling(
+            lambda n: fn(idx, tab, n, Ip), "int_fetch_kernel", it)
+        pms = bw.call_ms(lambda: ref_fn(idx, tab, it, Ip), dev)
+        cols = torch.remainder(idx.to(torch.int64) + (it - 1), Ip)
+        row0 = tab[0] if key == "K8" else tab.reshape(Ip // wk.LANE, 96, wk.LANE)[:, 0]
+        if key == "K8":
+            lib = lambda: row0[cols].sum(0)     # noqa: E731
+        else:
+            lib = lambda: row0[cols // wk.LANE, cols % wk.LANE].sum(0)   # noqa: E731
+        lms = bw.call_ms(lib, dev)
+        step_bytes = wk.SUB * wk.LANE * 96 * 2            # 2,048 fetches of 96 bf16 values
+        # the call: each distinct column's 96 values read once, ids, out and checksum
+        n_cols = int(torch.unique(torch.remainder(idx.to(torch.int64)[None] + torch.arange(
+            it, device=dev)[:, None, None], Ip)).numel())
+        bnd = bound(n_cols * 96 * 2 + nbytes(idx, got) + wk.SUB * wk.LANE * 4, 0)
+        rows_out[f"{key} {label}"] = dict(ms=ms64, kernel_ms=k64, ratio=ratio,
+                                          marginal_ratio=marginal, plain_ms=pms,
+                                          library_ms=lms, bound=bnd,
+                                          err=float((got - ref).abs().max()),
+                                          checksum_rel_err=cs_err)
+        log(f"phase16 {key} {label}: mismatches vs plain {mism}, checksum rel err {cs_err:.3g}; "
+            f"call {ms64:.4f} ms ({ms64 / it * 1e3:.3f} us/step) at {it} iters; kernel "
+            f"{k64 * 1e3:.2f} us at {it}, {k32 * 1e3:.2f} us at {it // 2}, {k16 * 1e3:.2f} us at "
+            f"{it // 4}, ratio {ratio:.3f}, marginal ratio {marginal:.3f}; one step's bytes "
+            f"{step_bytes / HBM_BYTES_PER_S * 1e6:.3f} us; call bound {bnd[0] * 1e3:.3f} us "
+            f"({n_cols} distinct columns); plain {pms:.3f} ms; "
+            f"library (row 0 indexed + sum) {lms:.4f} ms")
+        assert mism == 0, f"{key} {label} is not bit-exact with its plain version"
+        assert cs_err <= CHECKSUM_RTOL, f"{key} {label}: checksum disagrees with the plain version"
+        if Ip == bw.IP:
+            assert 1.8 <= ratio <= 2.2, f"{key} {label}: time does not scale with iters"
+        assert 1.8 <= marginal <= 2.2, f"{key} {label}: marginal time does not scale with iters"
+    return launches, rows_out
+
+
+def ldr_within(a, b):
+    """Share of pixels whose LDR channels all lie within 2/255, mean, max."""
+    diff = np.abs(a.astype(np.int32) - b.astype(np.int32)).max(-1)
+    return float(np.mean(diff <= 2)), float(diff.mean()), int(diff.max())
+
+
+def phase_pt_cuda_vs_cpu(Renderer, Config, W=256, H=192, frames=3):
+    """Phase 17: the path tracer on the GPU (kernels) against the CPU (plain
+    versions), stress:4, a few accumulated frames. 256x192 = 49,152 lanes,
+    over COMPACT_MIN_LANES: the compacted wavefront, as on the main path."""
+    from hobbyrenderer_tpu_torch.models import pathtracer as ptmod
+    assert W * H >= ptmod.COMPACT_MIN_LANES
+    cfg = Config(scene="stress:4", width=W, height=H, mode="path_tracer",
+                 cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke4pt"))
+    t0 = time.perf_counter()
+    rg = Renderer(cfg, device="cuda")
+    rc = Renderer(cfg, device="cpu")
+    for _ in range(frames):
+        lg = rg.render_frame().cpu().numpy()
+        lc = rc.render_frame().numpy()
+    sg, sc_ = rg.stats(), rc.stats()
+    rg.shutdown()
+    rc.shutdown()
+    within, mean, mx = ldr_within(lg, lc)
+    log(f"phase17 path tracer stress:4 {W}x{H} x{frames} frames cuda vs cpu: "
+        f"{within * 100:.3f}% of LDR pixels within 2/255, mean |d| {mean:.4f}, max {mx}; stats "
+        f"cuda {json.dumps(sg)} cpu {json.dumps(sc_)} ({time.perf_counter() - t0:.1f} s)")
+    assert within >= 0.99, within
+    return within
+
+
+def phase_pt_main(Renderer, Config, reset_counts, counts, n_frames=8):
+    """Phase 18: the path tracer's main path, bench.py's PT configuration:
+    stress at 960x540, 1 spp a frame, 8 bounces, RR from bounce 2 (518,400
+    lanes: the compacted wavefront). trace_paths runs under
+    torch.cuda.set_sync_debug_mode("error"): a host sync inside it raises.
+    The first frame's K3 calls are spied on: its full-width closest-hit walk
+    (bounce 0) and its first compacted NEE any-hit walk (bounce 3) are then
+    held bit for bit against the plain walk on the same inputs, after the
+    main path's counts are read."""
+    from hobbyrenderer_tpu_torch.models import pathtracer as ptmod
+    from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
+    RS = 960 * 540
+    walks = {}
+    k3_orig = b16ops.bvh16_walk
+
+    def k3_spy(table, o, d, t_max, any_hit, max_steps, t_min=1e-4):
+        n = o.shape[0]
+        key = ("closest full width" if not any_hit and n == RS else
+               "NEE compacted" if any_hit and n < RS else None)
+        if key is not None and key not in walks:
+            walks[key] = (table, o.clone(), d.clone(), t_max.clone(), any_hit, max_steps, t_min)
+        return k3_orig(table, o, d, t_max, any_hit, max_steps, t_min)
+
+    t0 = time.perf_counter()
+    r = Renderer(Config(scene="stress", width=960, height=540, mode="path_tracer",
+                        cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_pt_main")),
+                 device="cuda")
+    setup = time.perf_counter() - t0
+    assert r.config.settings.max_bounces == 8 and r.config.settings.rr_start_bounce == 2
+    orig = ptmod.trace_paths
+
+    def strict(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    ptmod.trace_paths = strict
+    reset_counts()
+    frame_ms, stats, per_frame = [], [], []
+    try:
+        for i in range(n_frames):
+            c0 = counts()
+            b16ops.bvh16_walk = k3_spy if i == 0 else k3_orig
+            f0 = time.perf_counter()
+            r.render_frame()
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - f0) * 1e3)
+            stats.append(r.stats())
+            per_frame.append({k: v - c0[k] for k, v in counts().items() if v - c0[k]})
+    finally:
+        ptmod.trace_paths = orig
+        b16ops.bvh16_walk = k3_orig
+    launches = counts()
+    ldr = r.last_frame
+    accum = r._model.accum
+    png = os.path.join(tempfile.gettempdir(), "chip_smoke_stress_pt_540p.png")
+    r.save_screenshot(png)
+    r.shutdown()
+    med = statistics.median(frame_ms[1:])
+    msamples = 960 * 540 * r._model.spp / (med / 1e3) / 1e6
+
+    def share(lanes_key, capped_key):
+        lanes_ = sum(s_[lanes_key] for s_ in stats)
+        capped_ = sum(s_[capped_key] for s_ in stats)
+        return f"{capped_}/{lanes_} ({capped_ / max(lanes_, 1):.6f})"
+    log(f"phase18 path tracer main path stress 960x540 spp 1 x{n_frames}: setup {setup:.1f} s "
+        f"(BVH+beam table+bvh16+light pool {r.bvh_seconds:.1f} s), frame ms "
+        f"{[round(x, 2) for x in frame_ms]}, median frames 2-{n_frames} {med:.2f} ms, "
+        f"{msamples:.4f} Msamples/s, launches {launches}, per frame {per_frame}, "
+        f"pt_dropped_lanes per frame {[s_['pt_dropped_lanes'] for s_ in stats]}, K3 steps "
+        f"budget ({ptmod.traceops.b16ops.UNCAPPED_STEPS}) spent: closest hit "
+        f"{share('rt_k3_lanes_pt', 'rt_k3_capped_pt')}, NEE "
+        f"{share('rt_k3_lanes_pt_nee', 'rt_k3_capped_pt_nee')}; png {png}")
+    assert tuple(ldr.shape) == (540, 960, 3) and ldr.dtype == torch.uint8
+    assert bool(torch.isfinite(accum).all()), "non-finite accumulation"
+    assert float(accum.mean()) > 0, "black accumulation"
+    assert launches["K3"] >= 2 * 8 * n_frames and all(f.get("K3", 0) > 0 for f in per_frame), \
+        per_frame
+    assert sum(v for k, v in launches.items() if k != "K3") == 0, launches
+    assert sorted(walks) == ["NEE compacted", "closest full width"], sorted(walks)
+    k3_rows = []
+    for name, (tab, o, d, tm, any_hit, steps, t_min) in sorted(walks.items()):
+        bt, btri, bs = b16ops.bvh16_walk(tab, o, d, tm, any_hit, steps, t_min)
+        pt, ptri, ps, rows = b16ops.bvh16_walk_reference(tab, o, d, tm, any_hit, steps, t_min,
+                                                         return_visited=True)
+        torch.cuda.synchronize()
+        mis = {k: int((a != b).sum()) for k, a, b in (("tri", btri, ptri), ("t", bt, pt),
+                                                      ("steps", bs, ps))}
+        ms = cuda_ms(lambda: b16ops.bvh16_walk(tab, o, d, tm, any_hit, steps, t_min))
+        pms = cuda_ms(lambda: b16ops.bvh16_walk_reference(tab, o, d, tm, any_hit, steps, t_min),
+                      reps=1)
+        # as phase 7: the rows read, rays and outputs; >= 432 fp32 ops a step
+        bnd = bound(int(rows.sum()) * tab.shape[1] * 4 + nbytes(o, d, tm, bt, btri, bs),
+                    int(ps.sum()) * 432)
+        live = tm > 1e-4            # the masked lanes walk with t_max 1e-4
+        k3_rows.append(dict(name=f"pt {name}", rays=o.shape[0], ms=ms, plain_ms=pms, bound=bnd,
+                            err=float((bt - pt).abs().max())))
+        log(f"phase18 K3 {name} rays={o.shape[0]} (live {int(live.sum())}) any_hit={any_hit} "
+            f"max_steps={steps}: mismatches vs plain {mis}, hit share of live "
+            f"{float((ptri >= 0)[live].float().mean()):.3f}, mean steps of live "
+            f"{float(ps[live].float().mean()):.2f}, max {int(ps.max())}, rows read "
+            f"{int(rows.sum())} of {tab.shape[0]}; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        assert not any(mis.values()), f"K3 {name} is not bit-exact with its plain version"
+    return dict(setup=setup, ms=med, msamples=msamples, launches=launches,
+                dropped=[s_["pt_dropped_lanes"] for s_ in stats], k3_rows=k3_rows)
+
+
+def _ldr01(ldr):
+    return ldr.cpu().numpy().astype(np.float32) / 255.0
+
+
+def _rmse_corr(ref, got):
+    return (float(np.sqrt(np.mean((ref - got) ** 2))),
+            float(np.corrcoef(ref.ravel(), got.ravel())[0, 1]))
+
+
+def phase_golden(Renderer, Config, frames=24, spp=(192, 96)):
+    """Phase 19: ROADMAP item 18 on the card. The port's PT reference at
+    stress:4, 96x64 at 192 spp and 256x192 at 96 spp (jitter off, dt=0, as
+    tests/golden_ref.py renders it; pt_spp batches 16 samples a frame), and
+    the port's flagship after 24 frames held to tests/test_golden.py's three
+    gates with RTXDI's straggler caps lifted (straggler_steps=None, the
+    exact path the gates were calibrated on); the default route's RMSE and
+    correlation are printed beside them."""
+    import functools
+    from hobbyrenderer_tpu_torch.models import pathtracer as ptmod
+    from hobbyrenderer_tpu_torch.ops import culling
+    from hobbyrenderer_tpu_torch.ops import restir as trestir
+    tmp = tempfile.gettempdir()
+    t0 = time.perf_counter()
+
+    def pt_renderer(W, H):
+        r = Renderer(Config(scene="stress:4", width=W, height=H, mode="path_tracer", pt_spp=16,
+                            cache_dir=os.path.join(tmp, "hr_smoke_golden")), device="cuda")
+        r.camera.jitter_enabled = False
+        return r
+
+    def pt_ref(W, H, spp):
+        r = pt_renderer(W, H)
+        for i in range(spp // 16):
+            ldr = r.render_frame(dt=0.0)
+            if i == 0:
+                first = r._model.accum.clone()
+        assert r._model.num_accum == spp
+        r.shutdown()
+        if W * H * 16 >= ptmod.COMPACT_MIN_LANES:
+            # the same compacted 16-spp frame again, in a new renderer: bit-identical
+            r2 = pt_renderer(W, H)
+            r2.render_frame(dt=0.0)
+            same = torch.equal(r2._model.accum, first)
+            r2.shutdown()
+            log(f"phase19 PT {W}x{H} 16 spp ({W * H * 16} lanes, compacted): first frame "
+                f"rendered twice bit-identical: {same}")
+            assert same, "the compacted spp > 1 frame is not deterministic"
+        return _ldr01(ldr)
+
+    def flagship(W, H, lod0=False):
+        old = culling.LOD_TARGET_PIXEL_ERROR
+        if lod0:
+            culling.LOD_TARGET_PIXEL_ERROR = 1e-6
+        try:
+            r = Renderer(Config(scene="stress:4", width=W, height=H, direct_mode="restir",
+                                indirect_mode="restir",
+                                cache_dir=os.path.join(tmp, "hr_smoke_golden")), device="cuda")
+            r.camera.jitter_enabled = False
+            for _ in range(frames):
+                ldr = r.render_frame(dt=0.0)
+            r.shutdown()
+        finally:
+            culling.LOD_TARGET_PIXEL_ERROR = old
+        return _ldr01(ldr)
+
+    refs = {(96, 64): pt_ref(96, 64, spp[0]), (256, 192): pt_ref(256, 192, spp[1])}
+    gates = (("flagship vs PT 96x64", 96, 64, False, 0.14, 0.73),
+             ("flagship(LOD0) vs PT 96x64", 96, 64, True, 0.118, 0.78),
+             ("flagship vs PT 256x192", 256, 192, False, 0.152, 0.70))
+    out, failed = {}, []
+    for label, W, H, lod0, g_rmse, g_corr in gates:
+        restir_di = trestir.restir_di
+        trestir.restir_di = functools.partial(restir_di, straggler_steps=None)
+        try:
+            rm, co = _rmse_corr(refs[(W, H)], flagship(W, H, lod0))
+        finally:
+            trestir.restir_di = restir_di
+        rm_d, co_d = _rmse_corr(refs[(W, H)], flagship(W, H, lod0))
+        out[label] = dict(rmse=rm, corr=co, default_route_rmse=rm_d, default_route_corr=co_d)
+        ok = rm < g_rmse and co > g_corr
+        log(f"phase19 {label}: caps lifted RMSE {rm:.4f} corr {co:.4f} (gate < {g_rmse} / > "
+            f"{g_corr}: {'pass' if ok else 'FAIL'}); default route (reference caps) RMSE "
+            f"{rm_d:.4f} corr {co_d:.4f}")
+        if not ok:
+            failed.append(label)
+    log(f"phase19 took {time.perf_counter() - t0:.1f} s")
+    assert not failed, f"ROADMAP item 18 gates failed: {failed}"
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs "
               "an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from hobbyrenderer_tpu_torch import bench_wkernels as bw
     from hobbyrenderer_tpu_torch import kernels
     from hobbyrenderer_tpu_torch.config import Config
     from hobbyrenderer_tpu_torch.ops import beam as beamops
@@ -125,13 +524,15 @@ def main():
     from hobbyrenderer_tpu_torch.ops import sky as skyops
     from hobbyrenderer_tpu_torch.ops import trace as traceops
     from hobbyrenderer_tpu_torch.ops import trace_kernel as tk
+    from hobbyrenderer_tpu_torch.ops import wkernels as wk
     from hobbyrenderer_tpu_torch.profile_frame import median_ms, time_passes
     from hobbyrenderer_tpu_torch.renderer import Renderer
     t_start = time.perf_counter()
     late_failures = []
     # each kernel's launch count: (module, attribute)
     counters = {"K1": (rk, "launches"), "K2": (rko, "launches"), "K3": (b16ops, "launches"),
-                "K4": (beamops, "launches"), "K5": (rk, "tiles_launches"), "K6": (tk, "launches")}
+                "K4": (beamops, "launches"), "K5": (rk, "tiles_launches"), "K6": (tk, "launches"),
+                "K7": (wk, "leaf_launches"), "K8": (wk, "int_launches"), "K9": (wk, "hc_launches")}
 
     def reset_counts():
         for m, attr in counters.values():
@@ -794,6 +1195,13 @@ def main():
     assert stats_fl[-1]["gi_traced_frames"] == n_frames // 2
     del r, hdr, ldr
 
+    # ---- phases 16-19: the step microbenchmarks K7-K9, the path tracer -----
+    launches_wk, wk_rows = phase_wkernels(reset_counts, counts)
+    phase_pt_cuda_vs_cpu(Renderer, Config)
+    pt = phase_pt_main(Renderer, Config, reset_counts, counts)
+    launches_pt = pt["launches"]
+    phase_golden(Renderer, Config)
+
     assert not late_failures, late_failures
     jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not jax_mods, f"the port loaded jax: {jax_mods[:5]}"
@@ -801,14 +1209,33 @@ def main():
                       if m == "hobbyrenderer_tpu" or m.startswith("hobbyrenderer_tpu."))
     assert not ref_mods, f"the port loaded the JAX package: {ref_mods[:5]}"
 
-    def entry(name, source, replaces, key, err, ms, plain_ms, bnd, main=None, **extra):
+    def entry(name, source, replaces, key, err, ms, plain_ms, bnd, main=None, library_ms=None,
+              **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=(main or launches_fl)[key], max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                    plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=library_ms,
                     launches_simple_path=launches[key], launches_restir_path=launches_rx[key],
                     launches_normal_basic=launches_nb[key],
                     launches_flagship_path=launches_fl[key],
-                    launches_flagship_k6_route=launches_k6[key], **extra)
+                    launches_flagship_k6_route=launches_k6[key], launches_pt=launches_pt[key],
+                    launches_bench_wkernels=launches_wk[key], **extra)
+
+    def wk_entry(name, key, replaces, variants):
+        # ms: the kernel's own device time (CUPTI); call_ms adds the launch
+        x = wk_rows[variants[0]]          # the script's first variant of the kernel
+        return entry(name, "hobbyrenderer_tpu_torch/csrc/wkernels.cu", replaces, key, x["err"],
+                     x["kernel_ms"], x["plain_ms"], x["bound"], main=launches_wk,
+                     library_ms=x["library_ms"], iters=64, call_ms=x["ms"],
+                     kernel_ratio_64_over_32=x["ratio"],
+                     kernel_marginal_ratio=x["marginal_ratio"],
+                     checksum_rel_err=x["checksum_rel_err"],
+                     variants={k: dict(ms=wk_rows[k]["kernel_ms"], call_ms=wk_rows[k]["ms"],
+                                       ratio=wk_rows[k]["ratio"],
+                                       marginal_ratio=wk_rows[k]["marginal_ratio"],
+                                       checksum_rel_err=wk_rows[k]["checksum_rel_err"],
+                                       plain_ms=wk_rows[k]["plain_ms"],
+                                       library_ms=wk_rows[k]["library_ms"],
+                                       bound_ms=wk_rows[k]["bound"][0]) for k in variants})
 
     kernels_line = {"kernels": [
         entry("raster_resolve_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
@@ -821,7 +1248,7 @@ def main():
               "hobbyrenderer_tpu/ops/wtrace.py:71", "K3", k3_main["err"], k3_main["ms"],
               k3_main["plain_ms"], k3_main["bound"], rays=k3_main["rays"],
               walks={x["name"]: [x["rays"], x["ms"], x["plain_ms"], x["bound"][0]]
-                     for x in k3_rows}),
+                     for x in k3_rows + pt["k3_rows"]}),
         entry("beam_any_hit_tiles", "hobbyrenderer_tpu_torch/csrc/beam_any_hit.cu",
               "hobbyrenderer_tpu/ops/beam.py:68", "K4", k4_err, k4_ms, k4_plain_ms, k4_bound),
         entry("raster_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
@@ -835,7 +1262,12 @@ def main():
                                         plain_ms=x["plain_ms"], k3_ms=x["k3_ms"],
                                         bound_ms=x["bound"][0], overflowed=x["ovf_blocks"],
                                         lanes_checked_against_k3=x["clean"])
-                        for x in k6_rows})]}
+                        for x in k6_rows}),
+        wk_entry("leaf_gather", "K7", "scripts/bench_wkernels.py:33",
+                 [v[0] for v in bw.K7_VARIANTS]),
+        wk_entry("int_fetch", "K8", "scripts/bench_wkernels.py:72", ["K8 Ip=4480", "K8 Ip=512"]),
+        wk_entry("int_fetch_hc", "K9", "scripts/bench_wkernels.py:100", ["K9 Ip=4480"])]}
+    log("path tracer 960x540: " + json.dumps({k: pt[k] for k in ("setup", "ms", "msamples")}))
     log(f"chip_smoke total seconds: {time.perf_counter() - t_start:.1f}")
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,8 @@ Usage:
         --mode normal_basic --indirect-mode ddgi  # CSM shadows + DDGI
     python -m hobbyrenderer_tpu_torch --scene stress --frames 8 \
         --direct-mode restir --indirect-mode restir   # the flagship frame
+    python -m hobbyrenderer_tpu_torch --scene stress --width 960 --height 540 \
+        --mode path_tracer --frames 8             # the reference path tracer
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ def main(argv=None):
     p.add_argument("--height", type=int, default=1080)
     p.add_argument("--mode", type=str, default=RenderingMode.NORMAL,
                    choices=RenderingMode.ALL)
+    p.add_argument("--render-scale", dest="render_scale", type=float, default=1.0,
+                   help="internal resolution scale; != 1 is TAA upscaling, not ported "
+                        "(the path tracer renders at the internal resolution)")
     p.add_argument("--frames", type=int, default=1)
     p.add_argument("--screenshot", type=str, default=None)
     p.add_argument("--cache-dir", type=str, default=".hr_cache")
@@ -48,12 +53,15 @@ def main(argv=None):
     p.add_argument("--denoiser", type=str, default="relax", choices=("relax", "reblur"))
     p.add_argument("--regir", action="store_true",
                    help="not ported yet (raises NotImplementedError)")
+    p.add_argument("--pt-spp", dest="pt_spp", type=int, default=1,
+                   help="path tracer: samples per pixel per frame, batched into one wavefront")
     p.add_argument("--describe-graph", action="store_true")
     p.add_argument("--timings", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
     a = p.parse_args(argv)
     cfg = Config(scene=a.scene, width=a.width, height=a.height, mode=a.mode,
+                 render_scale=a.render_scale, pt_spp=a.pt_spp,
                  cache_dir=a.cache_dir, seed=a.seed, shadow_scale=a.shadow_scale,
                  direct_mode=a.direct_mode, indirect_mode=a.indirect_mode,
                  restir_quality=a.restir_quality, denoiser=a.denoiser, regir=a.regir,

@@ -1,6 +1,7 @@
 """Build and bind the package's hand-written CUDA kernels (csrc/*.cu:
 K1 and K5 in raster_resolve.cu, K2 restir_candidates.cu, K3 bvh16_walk.cu,
-K4 beam_any_hit.cu, K6 closest_blocks.cu).
+K4 beam_any_hit.cu, K6 closest_blocks.cu, and the step microbenchmarks
+K7-K9 in wkernels.cu).
 
 The sources have a plain C interface. At first use each is compiled by its
 own ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false`` (all at
@@ -30,7 +31,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SOURCES = ("raster_resolve.cu", "beam_any_hit.cu", "restir_candidates.cu",
-           "bvh16_walk.cu", "closest_blocks.cu")
+           "bvh16_walk.cu", "closest_blocks.cu", "wkernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 
@@ -54,6 +55,10 @@ _SIGNATURES = {
     "hr_bvh16_walk": (_VP,) * 7 + (_I,) * 5 + (_F, _VP),
     # rays, table, t, tri, u, v, front, ovf, T, N, t_min, stream
     "hr_closest_hit_blocks": (_VP,) * 8 + (_I, _I, _F, _VP),
+    # idx, leaf, buf, out, checksum, rows, iters, n_leaf, stream
+    "hr_wk_leaf_gather": (_VP,) * 5 + (_I,) * 3 + (_VP,),
+    # idx, tab, out, checksum, iters, Ip, hc, stream
+    "hr_wk_int_fetch": (_VP,) * 4 + (_I,) * 3 + (_VP,),
 }
 
 

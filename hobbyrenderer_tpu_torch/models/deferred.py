@@ -578,7 +578,9 @@ class DeferredRenderer:
         self.ddgi_traced_frames = 0
         self.gi_traced_frames = 0
 
-    def render(self, gpu, vc, settings, dt: float = 1 / 60):
+    def render(self, gpu, vc, settings, dt: float = 1 / 60, view_proj=None):
+        """One frame -> LDR (H, W, 3) uint8. ``view_proj`` (the host camera
+        matrix the path tracer's reset compares) is not read here."""
         ctx = FrameContext(gpu=gpu, vc=vc, settings=settings, dt=dt, rt=self.rt)
         outputs = ["ldr", "raster_overflow", "visible_count", "occluded_count",
                    "phase2_count", "exposure"]

@@ -2,7 +2,10 @@
 hobbyrenderer_tpu/ops/atmosphere.py).
 
 The transmittance and multiple-scattering LUTs are the same host numpy
-precompute; sky radiance is the same 32-step in-scatter march, in torch."""
+precompute; sky radiance is the same 32-step in-scatter march, in torch.
+The constant tables go to a device once (``device_tables``) and the
+per-call constants are filled on the device, so a sky evaluation uploads
+nothing (an upload from host memory waits for the stream)."""
 
 from __future__ import annotations
 
@@ -116,20 +119,40 @@ def build_luts() -> AtmosphereLUTs:
     return AtmosphereLUTs(transmittance=T, multiscatter=psi.astype(np.float32))
 
 
-def _sample_ms(luts: AtmosphereLUTs, r: float, mu_s, device):
+@functools.lru_cache(maxsize=None)
+def device_tables(device: torch.device) -> dict:
+    """BETA_R, BETA_O and the multiple-scattering LUT on ``device`` (a
+    device with its index), uploaded once per process."""
+    return {"beta_r": torch.as_tensor(BETA_R, device=device),
+            "beta_o": torch.as_tensor(BETA_O, device=device),
+            "multiscatter": torch.as_tensor(build_luts().multiscatter, device=device)}
+
+
+def _filled(values, device) -> torch.Tensor:
+    """A small f32 vector of host floats, filled on the device (no upload)."""
+    return torch.stack([torch.full((), float(v), dtype=torch.float32, device=device)
+                        for v in values])
+
+
+def _sample_ms(r: float, mu_s, device):
     """Multiple-scattering factor at (observer radius r, sun cosine mu_s)."""
     x = torch.clamp((mu_s * 0.5 + 0.5) * MS_RES - 0.5, 0.0, MS_RES - 1.0)
-    y = torch.clamp(torch.tensor((r - RB) / H_ATM * MS_RES - 0.5, dtype=torch.float32,
-                                 device=device), 0.0, MS_RES - 1.0)
+    # the observer's row: a host constant, rounded to f32 like the x side
+    y = min(max(np.float32((r - RB) / H_ATM * MS_RES - 0.5), np.float32(0.0)),
+            np.float32(MS_RES - 1.0))
     x0 = torch.floor(x).to(torch.int64)
-    y0 = torch.floor(y).to(torch.int64)
+    y0 = int(np.floor(y))
     x1 = torch.clamp(x0 + 1, max=MS_RES - 1)
-    y1 = torch.clamp(y0 + 1, max=MS_RES - 1)
+    y1 = min(y0 + 1, MS_RES - 1)
     fx = (x - x0)[..., None]
-    fy = (y - y0)[..., None]
-    m = torch.as_tensor(luts.multiscatter, device=device)
-    return ((m[y0, x0] * (1 - fx) + m[y0, x1] * fx) * (1 - fy)
-            + (m[y1, x0] * (1 - fx) + m[y1, x1] * fx) * fy)
+    fy = float(np.float32(y - np.float32(y0)))
+    m = device_tables(device)["multiscatter"]
+
+    def tap(row: int, col):
+        # index_select: a 0-d index tensor would be read back to the host
+        return m[row].index_select(0, col.reshape(-1)).reshape(col.shape + (3,))
+    return ((tap(y0, x0) * (1 - fx) + tap(y0, x1) * fx) * (1 - fy)
+            + (tap(y1, x0) * (1 - fx) + tap(y1, x1) * fx) * fy)
 
 
 def _ozone_column_above(h):
@@ -150,9 +173,8 @@ def _airmass(mu):
 
 def sun_transmittance_analytic(h, mu_s):
     """T_sun(h, mu_s): per-species vertical optical depth x air mass."""
-    dev = mu_s.device
-    beta_r = torch.as_tensor(BETA_R, device=dev)
-    beta_o = torch.as_tensor(BETA_O, device=dev)
+    tabs = device_tables(mu_s.device)
+    beta_r, beta_o = tabs["beta_r"], tabs["beta_o"]
     vod = (beta_r * (H_R * torch.exp(-h / H_R))[..., None]
            + (BETA_M_SCAT + BETA_M_ABS) * (H_M * torch.exp(-h / H_M))[..., None]
            + beta_o * _ozone_column_above(h)[..., None])
@@ -181,7 +203,6 @@ def sky_radiance_lut(d, sun_dir, settings, observer_h_km: float = 0.2,
                      with_sun_disk: bool = True):
     """Sky radiance for unit view dirs d (..., 3); sun_dir (3,) tensor is the
     travel direction of sunlight."""
-    luts = build_luts()
     dev = d.device
     d = tm.normalize(d)
     to_sun = -tm.normalize(sun_dir)
@@ -205,11 +226,11 @@ def sky_radiance_lut(d, sun_dir, settings, observer_h_km: float = 0.2,
     rho_r = torch.exp(-h / H_R)
     rho_m = torch.exp(-h / H_M)
     rho_o = torch.clamp(1.0 - torch.abs(h - 25.0) / 15.0, min=0.0)
-    beta_r = torch.as_tensor(BETA_R, device=dev)
-    scat_r = beta_r * rho_r[..., None]
+    tabs = device_tables(dev)
+    scat_r = tabs["beta_r"] * rho_r[..., None]
     scat_m = BETA_M_SCAT * rho_m[..., None]
     ext = (scat_r + (BETA_M_SCAT + BETA_M_ABS) * rho_m[..., None]
-           + torch.as_tensor(BETA_O, device=dev) * rho_o[..., None])
+           + tabs["beta_o"] * rho_o[..., None])
     dt = (d_max / S)[..., None, None]
     tau = torch.cumsum(ext * dt, dim=-2)
     Tr_view = torch.exp(-(tau - 0.5 * ext * dt))
@@ -220,12 +241,11 @@ def sky_radiance_lut(d, sun_dir, settings, observer_h_km: float = 0.2,
 
     p_r = _phase_rayleigh(cos_g)[..., None, None]
     p_m = _phase_mie(cos_g)[..., None, None]
-    psi = _sample_ms(luts, r0, mu_s, dev)
+    psi = _sample_ms(r0, mu_s, dev)
     inscat = (Tr_view * (Ts * (scat_r * p_r + scat_m * p_m)
                          + psi * (scat_r + scat_m)) * dt).sum(-2)
 
-    E_sun = torch.tensor(settings.sun_color, dtype=torch.float32, device=dev) \
-        * settings.sun_intensity
+    E_sun = _filled(settings.sun_color, dev) * settings.sun_intensity
     L = inscat * E_sun
     T_path = torch.exp(-tau[..., -1, :])
     Tg_sun = sun_transmittance_analytic(torch.zeros((), device=dev), mu_s)
@@ -236,6 +256,6 @@ def sky_radiance_lut(d, sun_dir, settings, observer_h_km: float = 0.2,
         cos_r_d, omega = sun_disk_cos_omega(settings.sun_angular_radius)
         disk = (cos_g >= cos_r_d) & ~hits_ground
         T_sun = sun_transmittance_analytic(
-            torch.tensor(observer_h_km, dtype=torch.float32, device=dev), mu)
+            torch.full((), observer_h_km, dtype=torch.float32, device=dev), mu)
         L = torch.where(disk[..., None], E_sun / max(omega, 1e-6) * T_sun, L)
     return L

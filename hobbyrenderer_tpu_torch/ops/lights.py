@@ -144,6 +144,12 @@ def light_incident_rows(rows, uv, pos):
     """Polymorphic light evaluation from packed rows (..., 16) at shading
     points pos (..., 3) with area samples uv (..., 2) -> (L, radiance,
     dist). The emissive radiance folds cos_l * area / d^2."""
+    return _rows_incident(rows, uv, pos)[:3]
+
+
+def _rows_incident(rows, uv, pos):
+    """light_incident_rows plus the emissive sample's area-measure geometry
+    (is_em, area, cos_l, d2)."""
     is_em = rows[..., 13] > 0.5
     ltype = rows[..., 0].to(torch.int32)
     ldir = rows[..., 4:7]
@@ -181,7 +187,7 @@ def light_incident_rows(rows, uv, pos):
 
     L = torch.where(is_em[..., None], L_e, L_a)
     rad = torch.where(is_em[..., None], rad_e, rad_a)
-    return L, rad, torch.where(is_em, dist_e, dist_a)
+    return L, rad, torch.where(is_em, dist_e, dist_a), is_em, area, cos_l, d2
 
 
 def pool_light_incident_packed(pool: LightPool, li, uv, pos):
@@ -189,6 +195,17 @@ def pool_light_incident_packed(pool: LightPool, li, uv, pos):
     one packed-row gather per lane (see light_incident_rows)."""
     N = pool.packed.shape[0]
     return light_incident_rows(pool.packed[torch.clamp(li, 0, N - 1)], uv, pos)
+
+
+def pool_light_incident(pool: LightPool, li, uv, pos):
+    """Incident (L, radiance, dist) of pool lights ``li`` at ``pos``, plus
+    the area-measure geometry of emissive samples, (is_em, area, cos_l, d2):
+    the solid-angle pdf of a sampled direction is pdf_select * d2 / (area *
+    cos_l) (the path tracer's MIS; lights.py:197 with return_aux=True)."""
+    N = pool.packed.shape[0]
+    L, rad, dist, is_em, area, cos_l, d2 = _rows_incident(
+        pool.packed[torch.clamp(li, 0, N - 1)], uv, pos)
+    return L, rad, dist, (is_em, area, cos_l, d2)
 
 
 def presample_lights(pool: LightPool, frame: int, n_tiles: int = PRESAMPLE_TILES,

@@ -1,6 +1,7 @@
 """Monte Carlo sampling helpers (counterpart of hobbyrenderer_tpu/ops/
 sampling.py: ONB, cone and cosine sampling, GGX-VNDF half-vectors and the
-Smith masking terms of the traced specular pass)."""
+Smith masking terms of the traced specular pass, and the path tracer's MIS
+helpers)."""
 
 from __future__ import annotations
 
@@ -84,3 +85,27 @@ def cosine_sample_hemisphere(u1, u2):
     phi = (2.0 * math.pi) * u2
     z = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+
+
+def power_heuristic(pdf_a, pdf_b):
+    a2 = pdf_a * pdf_a
+    return a2 / torch.clamp(a2 + pdf_b * pdf_b, min=1e-12)
+
+
+def ggx_ndf(n_dot_h, alpha):
+    a2 = alpha * alpha
+    d = n_dot_h * n_dot_h * (a2 - 1.0) + 1.0
+    return a2 / torch.clamp(math.pi * d * d, min=1e-12)
+
+
+def brdf_mix_pdf(v_loc, l_loc, alpha, p_spec):
+    """Solid-angle pdf of the diffuse (cosine) / specular (GGX-VNDF) mixture
+    sampler at direction l (local space, n = +z): the BSDF side of the MIS
+    weights for emissive-triangle NEE."""
+    ndl = torch.clamp(l_loc[..., 2], min=0.0)
+    ndv = torch.clamp(v_loc[..., 2], min=1e-5)
+    h = tm.normalize(v_loc + l_loc)
+    ndh = torch.clamp(h[..., 2], min=0.0)
+    pdf_s = smith_g1(ndv, alpha) * ggx_ndf(ndh, alpha) / (4.0 * ndv)
+    pdf_d = ndl / math.pi
+    return p_spec * pdf_s + (1.0 - p_spec) * pdf_d

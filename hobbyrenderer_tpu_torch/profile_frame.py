@@ -2,14 +2,17 @@
 
     python -m hobbyrenderer_tpu_torch.profile_frame --scene stress \
         [--direct-mode restir] [--indirect-mode restir] \
-        [--mode normal_basic --indirect-mode ddgi] [--frames 8]
+        [--mode normal_basic --indirect-mode ddgi] [--mode path_tracer] [--frames 8]
 
 Renders ``--frames`` frames and prints, per pass: the stream time (CUDA
 events around each pass, median over the frames after the first) and the
 device time of the kernels that ran inside it (a torch.profiler trace of
 the last 3 frames: kernels that start inside the pass's device-side
-record_function range, / 3);
-then the frame time (host clock with a synchronize, median after the
+record_function range, / 3). A path-tracer frame (960x540 unless a size
+is given) has no passes: its rows are the bounces, each split into its two
+K3 walks (closest hit, NEE any hit) and the shading around them, and the
+wavefront compactions.
+Then the frame time (host clock with a synchronize, median after the
 first), the kernels per frame, and the device's busy share of the traced
 frames (kernel time / wall time). The first line is the card's name and
 power limit. Needs a GPU."""
@@ -75,18 +78,57 @@ def median_ms(pairs, skip: int = 1) -> float:
     return round(statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs[skip:]), 3)
 
 
+def _in(k, rng):
+    return rng.time_range.start <= k.time_range.start < rng.time_range.end
+
+
+def _pt_rows(dev_events, frames: int):
+    """Per-bounce kernel ms of a path-tracer trace (ms a frame): the 'PT
+    bounce b' and 'PT compact b' ranges, each bounce split into its two K3
+    walks (the bvh16 walk kernels in the range, in order: the closest hit,
+    then the NEE any hit) and the shading around them."""
+    def ms(ks):
+        return round(sum(k.time_range.elapsed_us() for k in ks) / 1e3 / frames, 3)
+    ranges = [e for e in dev_events if e.name.startswith("PT ")]
+    kern = [e for e in dev_events if not e.name.startswith("PT ")]
+    rows = {}
+    for name in sorted({e.name for e in ranges}, key=lambda n: (int(n.split()[-1]), n)):
+        row = {"kernel_ms": 0.0, "kernels": 0}
+        walks = [[], []]
+        for r in (r for r in ranges if r.name == name):
+            inside = [k for k in kern if _in(k, r)]
+            row["kernel_ms"] += ms(inside)
+            row["kernels"] += len(inside)
+            k3 = sorted((k for k in inside if "bvh16_walk" in k.name),
+                        key=lambda k: k.time_range.start)
+            for w, k in zip(walks, k3):
+                w.append(k)
+        row["kernel_ms"] = round(row["kernel_ms"], 3)
+        row["kernels"] = round(row["kernels"] / frames)
+        if name.startswith("PT bounce"):
+            row["closest_hit_ms"], row["nee_any_hit_ms"] = ms(walks[0]), ms(walks[1])
+            row["shading_ms"] = round(row["kernel_ms"] - row["closest_hit_ms"]
+                                      - row["nee_any_hit_ms"], 3)
+        rows[name[3:]] = row
+    return rows, kern
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="hobbyrenderer_tpu_torch.profile_frame")
     p.add_argument("--scene", default="stress")
-    p.add_argument("--width", type=int, default=1920)
-    p.add_argument("--height", type=int, default=1080)
+    p.add_argument("--width", type=int, default=None,
+                   help="default 1920 (960 for the path tracer, bench.py's PT size)")
+    p.add_argument("--height", type=int, default=None, help="default 1080 (540)")
     p.add_argument("--direct-mode", default="simple", choices=("simple", "restir"))
-    p.add_argument("--mode", default="normal", choices=("normal", "normal_basic"))
+    p.add_argument("--mode", default="normal", choices=("normal", "normal_basic", "path_tracer"))
     p.add_argument("--indirect-mode", default="none", choices=("none", "ssgi", "ddgi", "restir"))
     p.add_argument("--no-specular-indirect", dest="specular_indirect", action="store_false")
     p.add_argument("--frames", type=int, default=8)
     p.add_argument("--cache-dir", default=".hr_cache")
     a = p.parse_args(argv)
+    pt = a.mode == "path_tracer"
+    a.width = a.width or (960 if pt else 1920)
+    a.height = a.height or (540 if pt else 1080)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame needs an NVIDIA GPU")
     from hobbyrenderer_tpu_torch.config import Config
@@ -99,8 +141,8 @@ def main(argv=None):
                         direct_mode=a.direct_mode, indirect_mode=a.indirect_mode,
                         specular_indirect=a.specular_indirect, cache_dir=a.cache_dir),
                  device="cuda")
-    names = [ps.name for ps in r.graph.passes if ps.enabled]
-    events = time_passes(r.graph)
+    names = [] if pt else [ps.name for ps in r.graph.passes if ps.enabled]
+    events = {} if pt else time_passes(r.graph)
     frame_ms = []
     for _ in range(a.frames - 3):
         t0 = time.perf_counter()
@@ -118,17 +160,20 @@ def main(argv=None):
         wall_ms = (time.perf_counter() - t0) * 1e3
     r.shutdown()
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    ann = [e for e in dev if e.name in names]        # device-side pass ranges
-    kern = [e for e in dev if e.name not in names]
+    if pt:
+        rows, kern = _pt_rows(dev, 3)
+        print("per-bounce " + json.dumps(rows))
+    else:
+        ann = [e for e in dev if e.name in names]        # device-side pass ranges
+        kern = [e for e in dev if e.name not in names]
+        per = {}
+        for rng in ann:
+            per[rng.name] = per.get(rng.name, 0.0) + sum(
+                k.time_range.elapsed_us() for k in kern if _in(k, rng)) / 1e3
+        rows = {n: {"stream_ms": median_ms(events[n]),
+                    "kernel_ms": round(per[n] / 3, 3) if n in per else None} for n in names}
+        print("per-pass " + json.dumps(rows))
     busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    per = {}
-    for rng in ann:
-        t0, t1 = rng.time_range.start, rng.time_range.end
-        per[rng.name] = per.get(rng.name, 0.0) + sum(
-            k.time_range.elapsed_us() for k in kern if t0 <= k.time_range.start < t1) / 1e3
-    rows = {n: {"stream_ms": median_ms(events[n]),
-                "kernel_ms": round(per[n] / 3, 3) if n in per else None} for n in names}
-    print("per-pass " + json.dumps(rows))
     print(json.dumps({"scene": a.scene, "size": [a.width, a.height], "mode": a.mode,
                       "direct_mode": a.direct_mode, "indirect_mode": a.indirect_mode,
                       "specular_indirect": a.specular_indirect,

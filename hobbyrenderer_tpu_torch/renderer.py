@@ -5,9 +5,11 @@ Ported: the Normal-mode frame with simple direct lighting or ReSTIR DI
 (``direct_mode="restir"``, every ``restir_quality`` preset, both
 denoisers) and ``indirect_mode`` none or restir (ReSTIR GI, with traced
 specular unless ``specular_indirect`` is off: with ReSTIR DI this is the
-flagship frame), and the NormalBasic frame (cascaded shadow maps) with
-``indirect_mode`` none, ssgi or ddgi; every other option raises
-NotImplementedError naming the ROADMAP slice that brings it."""
+flagship frame), the NormalBasic frame (cascaded shadow maps) with
+``indirect_mode`` none, ssgi or ddgi, and the reference path tracer
+(``mode="path_tracer"``, progressive, ``pt_spp`` samples a frame); every
+other option raises NotImplementedError naming the ROADMAP slice that
+brings it."""
 
 from __future__ import annotations
 
@@ -26,11 +28,13 @@ from hobbyrenderer_tpu_torch.utils import math as hm
 from hobbyrenderer_tpu_torch.utils.image import write_png
 from hobbyrenderer_tpu_torch.utils.timing import PROFILER
 from hobbyrenderer_tpu_torch.models.deferred import DeferredRenderer
+from hobbyrenderer_tpu_torch.models.pathtracer import PathTracerRenderer
 from hobbyrenderer_tpu_torch.models.scene_rt import build_scene_rt
 from hobbyrenderer_tpu_torch.scene.gpu import build_scene_gpu, update_instance_transforms
 
 _REGIR = "ROADMAP Queue 1 slice 7 (ReGIR)"
-_LATER = "ROADMAP Queue 1 slices 6-7 (options outside the ported Normal and NormalBasic frames)"
+_LATER = ("ROADMAP Queue 1 slice 7 (options outside the ported Normal, NormalBasic and "
+          "path tracer frames)")
 _OTHER_GI = "ROADMAP Queue 1 slice 7 (SHARC; DDGI and SSGI in Normal mode)"
 
 
@@ -40,21 +44,23 @@ def check_config(cfg: Config):
         if not ok:
             raise NotImplementedError(f"{what} is not ported yet: {slice_}")
 
-    need(cfg.mode in (RenderingMode.NORMAL, RenderingMode.NORMAL_BASIC),
-         f"--mode {cfg.mode}", _LATER)
-    need((cfg.direct_mode or "simple") in ("simple", "restir"),
-         f"--direct-mode {cfg.direct_mode}", _LATER)
-    need(not cfg.regir, "--regir", _REGIR)
-    if (cfg.direct_mode or "simple") == "restir" and cfg.denoiser not in ("relax", "reblur"):
-        raise ValueError(f"unknown denoiser '{cfg.denoiser}' (relax | reblur)")
-    indirect = cfg.indirect_mode or "none"
-    if cfg.mode == RenderingMode.NORMAL:
-        need(indirect in ("none", "restir"), f"--indirect-mode {cfg.indirect_mode} in "
-             f"--mode {cfg.mode}", _OTHER_GI)
-    else:
-        need(indirect in ("none", "ssgi", "ddgi"), f"--indirect-mode {cfg.indirect_mode} in "
-             f"--mode {cfg.mode}", _OTHER_GI)
-    need(cfg.render_scale == 1.0, "--render-scale != 1 (TAA upscaling)", _LATER)
+    need(cfg.mode in (RenderingMode.NORMAL, RenderingMode.NORMAL_BASIC,
+                      RenderingMode.PATH_TRACER), f"--mode {cfg.mode}", _LATER)
+    if cfg.mode != RenderingMode.PATH_TRACER:
+        # the path tracer reads none of the deferred frame's options
+        need((cfg.direct_mode or "simple") in ("simple", "restir"),
+             f"--direct-mode {cfg.direct_mode}", _LATER)
+        need(not cfg.regir, "--regir", _REGIR)
+        if (cfg.direct_mode or "simple") == "restir" and cfg.denoiser not in ("relax", "reblur"):
+            raise ValueError(f"unknown denoiser '{cfg.denoiser}' (relax | reblur)")
+        indirect = cfg.indirect_mode or "none"
+        if cfg.mode == RenderingMode.NORMAL:
+            need(indirect in ("none", "restir"), f"--indirect-mode {cfg.indirect_mode} in "
+                 f"--mode {cfg.mode}", _OTHER_GI)
+        else:
+            need(indirect in ("none", "ssgi", "ddgi"), f"--indirect-mode {cfg.indirect_mode} "
+                 f"in --mode {cfg.mode}", _OTHER_GI)
+        need(cfg.render_scale == 1.0, "--render-scale != 1 (TAA upscaling)", _LATER)
     need(not cfg.tex_streaming, "texture streaming", _LATER)
     need(not (cfg.envmap or cfg.irradiance or cfg.radiance or cfg.brdflut
               or cfg.env_lights), "environment maps / authored IBL", _LATER)
@@ -63,6 +69,25 @@ def check_config(cfg: Config):
     need(not cfg.execute_per_pass, "--execute-per-pass", _LATER)
     need(not cfg.tune_file, "--tune-file", _LATER)
     need(not cfg.keep_hdr, ".hdr screenshots", _LATER)
+
+
+def device_view_constants(vc, device) -> dict:
+    """A camera's view constants (numpy, Camera.view_constants) on
+    ``device``: matrices as f32 tensors, scalars as python numbers, plus the
+    frustum planes."""
+    out = {}
+    for k, v in vc.items():
+        a = np.asarray(v)
+        if a.ndim == 0:
+            out[k] = int(a) if a.dtype.kind in "iu" else float(a)
+        elif k == "viewport":
+            out[k] = (float(a[0]), float(a[1]))
+        else:
+            out[k] = torch.as_tensor(a.astype(np.float32), device=device)
+    out["frustum_planes"] = torch.as_tensor(
+        hm.extract_frustum_planes(np.asarray(vc["view_proj"], np.float32)),
+        dtype=torch.float32, device=device)
+    return out
 
 
 def resolve_device(device) -> torch.device:
@@ -116,13 +141,25 @@ class Renderer:
         os.makedirs(cfg.cache_dir, exist_ok=True)
         self.camera_state.restore(self.camera, self._scene_key)
         self.camera_state.start()
+        self.bvh_seconds = 0.0
+        if cfg.mode == RenderingMode.PATH_TRACER:
+            if cfg.render_scale != 1.0:
+                print("warning: --render-scale is a TAA-upscaling feature of the deferred "
+                      "modes; the reference path tracer renders at the internal resolution "
+                      f"{cfg.render_width}x{cfg.render_height}")
+            with PROFILER.scope("Init/BVH"):
+                t0 = time.perf_counter()
+                rt = build_scene_rt(self.scene, self.device, gpu=self.gpu)
+                self.bvh_seconds = time.perf_counter() - t0
+            self._model = PathTracerRenderer(self.gpu, cfg.render_width, cfg.render_height,
+                                             config=cfg, rt=rt)
+            return
         # the JAX Renderer's rule: the traced passes need the RT scene (the
         # Normal frame's sun shadow, RTXDI or ReSTIR GI, NormalBasic's DDGI);
         # the light pool and the 16-wide BVH only RTXDI, ReSTIR GI and DDGI
         traced_gi = (cfg.indirect_mode or "none") in ("ddgi", "restir")
         restir = (cfg.direct_mode or "simple") == "restir" and cfg.mode == RenderingMode.NORMAL
         rt = None
-        self.bvh_seconds = 0.0
         if cfg.mode == RenderingMode.NORMAL or traced_gi:
             with PROFILER.scope("Init/BVH"):
                 t0 = time.perf_counter()
@@ -139,26 +176,13 @@ class Renderer:
 
     @property
     def graph(self):
+        """The frame's pass graph (None for the path tracer, which has none)."""
         return self._model.graph
 
     def view_constants(self) -> dict:
         """Camera constants for this frame: matrices as device tensors,
         scalars as python numbers, plus the frustum planes."""
-        vc = self.camera.view_constants(self.frame_index)
-        dev = self.device
-        out = {}
-        for k, v in vc.items():
-            a = np.asarray(v)
-            if a.ndim == 0:
-                out[k] = int(a) if a.dtype.kind in "iu" else float(a)
-            elif k == "viewport":
-                out[k] = (float(a[0]), float(a[1]))
-            else:
-                out[k] = torch.as_tensor(a.astype(np.float32), device=dev)
-        out["frustum_planes"] = torch.as_tensor(
-            hm.extract_frustum_planes(np.asarray(vc["view_proj"], np.float32)),
-            dtype=torch.float32, device=dev)
-        return out
+        return device_view_constants(self.camera.view_constants(self.frame_index), self.device)
 
     def render_frame(self, dt: float = 1.0 / 60.0):
         cfg = self.config
@@ -172,7 +196,9 @@ class Renderer:
         with PROFILER.scope("Frame/ViewConstants"):
             vc = self.view_constants()
         with PROFILER.scope("Frame/Render"):
-            ldr = self._model.render(self.gpu, vc, cfg.settings, dt)
+            # the host matrix: the path tracer's camera-move reset compares it
+            view_proj = self.camera.view_constants(self.frame_index)["view_proj_no_jitter"]
+            ldr = self._model.render(self.gpu, vc, cfg.settings, dt, view_proj)
         self.camera.end_frame()
         self.camera_state.publish(self.camera, self._scene_key)
         self.frame_index += 1
@@ -209,7 +235,7 @@ class Renderer:
                 for k, v in self._model.last_stats.items()}
 
     def describe_graph(self) -> str:
-        return self._model.graph.describe()
+        return self.graph.describe() if self.graph is not None else "(no graph)"
 
     def timings(self) -> str:
         return PROFILER.table()

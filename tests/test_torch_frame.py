@@ -143,7 +143,8 @@ def test_cpu_frame_counts_no_kernel_launch(tmp_path):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(regir=True, direct_mode="restir"), dict(indirect_mode="sharc"), dict(mode="path_tracer"),
+    dict(regir=True, direct_mode="restir"), dict(indirect_mode="sharc"),
+    dict(mode="path_tracer", envmap="sky.hdr"),
     dict(mode="ibl"), dict(render_scale=0.5), dict(tex_streaming=True),
     dict(execute_per_pass=True), dict(debug_view="ssgi_radiance")])
 def test_unported_options_raise(tmp_path, opt):

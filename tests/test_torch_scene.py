@@ -146,9 +146,9 @@ def test_scene_rt_matches_jax_sunshadow_subset():
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Importing the port and rendering one CPU restir frame leaves jax and
-    the JAX package out of sys.modules (a fresh interpreter: this test
-    process has both loaded)."""
+    """Importing the port and rendering one CPU restir frame and one
+    path-tracer frame leaves jax and the JAX package out of sys.modules (a
+    fresh interpreter: this test process has both loaded)."""
     code = (
         "import sys\n"
         "import hobbyrenderer_tpu_torch\n"
@@ -160,6 +160,11 @@ def test_port_imports_no_jax(tmp_path):
         "r.shutdown()\n"
         "assert tuple(ldr.shape) == (48, 64, 3), ldr.shape\n"
         "assert r.graph.get('RTXDI').enabled and r.graph.get('Denoise').enabled\n"
+        f"p = Renderer(Config(scene='cube', width=32, height=24, mode='path_tracer',"
+        f" cache_dir={str(tmp_path)!r}), device='cpu')\n"
+        "ldr = p.render_frame()\n"
+        "p.shutdown()\n"
+        "assert tuple(ldr.shape) == (24, 32, 3), ldr.shape\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad[:5]\n"
         "ref = sorted(m for m in sys.modules if m == 'hobbyrenderer_tpu'"
