@@ -19,7 +19,8 @@ route closest_hit_auto(..., force_kernel=True) and its kernel K6 (phase
 kernel of each path launched. Then the walk-step microbenchmarks K7-K9
 (their entry point `python -m hobbyrenderer_tpu_torch.bench_wkernels`, then
 each against its plain version, phase 16) and the reference path tracer:
-CUDA against CPU at 256x192 on the compacted wavefront (phase 17), its main
+CUDA against CPU at 256x192 on the compacted wavefront, every K3 walk of
+both runs spied on to show where they part (phase 17), its main
 path, bench.py's PT configuration (stress at 960x540, 1 spp, 8 bounces;
 trace_paths under set_sync_debug_mode("error"); the first frame's
 full-width closest-hit and compacted NEE walks held against the plain K3
@@ -46,6 +47,7 @@ one line per phase, the kernels JSON line, and last
 Exits nonzero when no GPU is visible, and when run outside the repository.
 """
 
+import ctypes
 import json
 import os
 import statistics
@@ -163,25 +165,33 @@ def rel_err(got, ref):
 
 
 CHECKSUM_RTOL = 1e-5     # sums in another order; a skipped row or step moves it >= 1/64
+K89_GATE_ITERS = 4096    # K8's and K9's scaling gates read at 4,096 / 2,048 / 1,024 steps
+ONE_CTA_AN_SM_BYTES = 200_000    # shared bytes a CTA that leave room for one CTA an SM
 
 
 def phase_wkernels(counters_reset, counts):
     """Phase 16: the step microbenchmarks K7-K9. Their main path is their
     entry point, `python -m hobbyrenderer_tpu_torch.bench_wkernels`, driven
     with the counts reset just before; then each kernel against its plain
-    version at the script's shapes (the output bit-exact; the checksum of
-    every fetched value, whose sums run in another order, within
-    CHECKSUM_RTOL), its time per call (CUDA events around queued launches,
-    as the entry point times it), the kernel's own device time at 64, 32 and
-    16 iterations, interleaved in one trace (no repeat may be elided: the ratio 64/32 is gated on each
-    kernel's first variant in the script, where the kernel's fixed ~1.5 us
-    of its own, the id fetch, the CTA ramp and the checksum, weighs least,
-    and the marginal ratio (t64 - t32) / (t32 - t16), which that fixed cost
-    does not touch, on every variant), one step's bytes over the HBM rate,
-    the call's bound (each distinct row or column it fetches read once, its
-    outputs written once) and one PyTorch call that computes the same values
-    (the library figure)."""
+    version at the script's shapes, 64 steps (the output bit-exact; the
+    checksum of every fetched value, whose sums run in another order,
+    within CHECKSUM_RTOL), its time per call (CUDA events around queued
+    launches, as the entry point times it), the kernel's own device time at
+    64, 32 and 16 iterations, interleaved in one trace, with one step's
+    marginal time (t64 - t32) / 32, one step's bytes over the HBM rate, the
+    call's bound (each distinct row or column it fetches read once, its
+    outputs written once) and one PyTorch call that computes the same
+    values (the library figure; K8 and K9 also the last step's row 0 alone).
+    No repeat may be elided: the ratio t(n) / t(n/2) and the marginal ratio
+    (t(n) - t(n/2)) / (t(n/2) - t(n/4)), which a fixed cost does not touch,
+    are gated to 1.8-2.2. K7 reads them at 64 / 32 / 16 steps (the ratio on
+    the script's first variant only, where its fixed ~1.5 us weighs least).
+    K8 and K9 stage their table into shared memory once, a fixed cost of
+    microseconds against steps of tens of nanoseconds, so they read both
+    gates at K89_GATE_ITERS (4,096) / 2,048 / 1,024 steps, on every
+    variant."""
     from hobbyrenderer_tpu_torch import bench_wkernels as bw
+    from hobbyrenderer_tpu_torch import kernels
     from hobbyrenderer_tpu_torch.ops import wkernels as wk
     dev = torch.device("cuda", 0)
     counters_reset()
@@ -211,8 +221,8 @@ def phase_wkernels(counters_reset, counts):
         # the call: each distinct row read once, ids, out and checksum written once
         n_rows = int(torch.unique(ids).numel())
         bnd = bound(n_rows * wk.LANE * 4 + nbytes(idx, got) + rows * 4, 0)
-        rows_out[label] = dict(ms=ms64, kernel_ms=k64, ratio=ratio, marginal_ratio=marginal,
-                               plain_ms=pms, library_ms=lms, bound=bnd,
+        rows_out[label] = dict(ms=ms64, kernel_ms=k64, gate_iters=it, ratio=ratio,
+                               marginal_ratio=marginal, plain_ms=pms, library_ms=lms, bound=bnd,
                                err=float((got - ref).abs().max()), checksum_rel_err=cs_err)
         log(f"phase16 K7 {label}: mismatches vs plain {mism}, checksum rel err {cs_err:.3g}; "
             f"call {ms64:.4f} ms ({ms64 / it * 1e3:.3f} us/step) at {it} iters; kernel "
@@ -228,6 +238,16 @@ def phase_wkernels(counters_reset, counts):
         if label == bw.K7_VARIANTS[0][0]:       # the script's first variant (docstring)
             assert 1.8 <= ratio <= 2.2, f"K7 {label}: time does not scale with iters"
         assert 1.8 <= marginal <= 2.2, f"K7 {label}: marginal time does not scale with iters"
+
+    def max_clusters(hc, cluster, smem):
+        n = ctypes.c_int(0)
+        kernels.check(kernels.library().hr_wk_int_fetch_max_clusters(
+            int(hc), cluster, smem, ctypes.addressof(n)), "hr_wk_int_fetch_max_clusters")
+        return n.value
+
+    # the SMs that clusters of C CTAs reach, one CTA an SM
+    reach = {C: C * max_clusters(False, C, ONE_CTA_AN_SM_BYTES) for C in (1, 2, 4, 8)}
+    log(f"phase16 SMs that K8's clusters of 1/2/4/8 CTAs reach (one CTA an SM): {reach}")
     for key, label, fn, ref_fn, idx, tab, Ip in (
             ("K8", f"Ip={bw.IP}", wk.int_fetch, wk.int_fetch_reference, x["idx_ip"], x["tab"],
              bw.IP),
@@ -235,43 +255,66 @@ def phase_wkernels(counters_reset, counts):
              512),
             ("K9", f"Ip={bw.IP}", wk.int_fetch_hc, wk.int_fetch_hc_reference, x["idx_ip"],
              x["tab_hc"], bw.IP)):
+        lay = wk.int_fetch_layout(Ip, key == "K9")
         got, cs = fn(idx, tab, it, Ip)
         ref, ref_cs = ref_fn(idx, tab, it, Ip)
         torch.cuda.synchronize()
         mism = int((got != ref).sum())
         cs_err = rel_err(cs, ref_cs)
         ms64 = bw.call_ms(lambda: fn(idx, tab, it, Ip), dev)
-        k64, k32, k16, ratio, marginal = iters_scaling(
+        k64, k32, k16, ratio64, marginal64 = iters_scaling(
             lambda n: fn(idx, tab, n, Ip), "int_fetch_kernel", it)
+        # the gates: the table is staged once, a fixed cost of microseconds
+        # that 64 steps of tens of nanoseconds would not outweigh
+        kl, kl2, kl4, ratio, marginal = iters_scaling(
+            lambda n: fn(idx, tab, n, Ip), "int_fetch_kernel", K89_GATE_ITERS)
+        step_ns = (kl - kl2) / (K89_GATE_ITERS // 2) * 1e6
         pms = bw.call_ms(lambda: ref_fn(idx, tab, it, Ip), dev)
-        cols = torch.remainder(idx.to(torch.int64) + (it - 1), Ip)
-        row0 = tab[0] if key == "K8" else tab.reshape(Ip // wk.LANE, 96, wk.LANE)[:, 0]
+        steps = torch.remainder(idx.to(torch.int64)[None] + torch.arange(
+            it, device=dev)[:, None, None], Ip)                       # (it, 16, 128)
+        cols = steps[-1]
         if key == "K8":
-            lib = lambda: row0[cols].sum(0)     # noqa: E731
+            row0 = tab[0]
+            last = lambda: row0[cols].sum(0)     # noqa: E731
+            all_cols = steps.reshape(-1)
+            lib = lambda: tab.index_select(1, all_cols)      # noqa: E731
         else:
-            lib = lambda: row0[cols // wk.LANE, cols % wk.LANE].sum(0)   # noqa: E731
+            t3 = tab.reshape(Ip // wk.LANE, 96, wk.LANE)
+            row0 = t3[:, 0]
+            last = lambda: row0[cols // wk.LANE, cols % wk.LANE].sum(0)   # noqa: E731
+            hi, lo = steps.reshape(-1) // wk.LANE, steps.reshape(-1) % wk.LANE
+            lib = lambda: t3[hi, :, lo]          # noqa: E731
+        lms_last = bw.call_ms(last, dev)
         lms = bw.call_ms(lib, dev)
         step_bytes = wk.SUB * wk.LANE * 96 * 2            # 2,048 fetches of 96 bf16 values
         # the call: each distinct column's 96 values read once, ids, out and checksum
-        n_cols = int(torch.unique(torch.remainder(idx.to(torch.int64)[None] + torch.arange(
-            it, device=dev)[:, None, None], Ip)).numel())
+        n_cols = int(torch.unique(steps).numel())
         bnd = bound(n_cols * 96 * 2 + nbytes(idx, got) + wk.SUB * wk.LANE * 4, 0)
-        rows_out[f"{key} {label}"] = dict(ms=ms64, kernel_ms=k64, ratio=ratio,
-                                          marginal_ratio=marginal, plain_ms=pms,
-                                          library_ms=lms, bound=bnd,
+        rows_out[f"{key} {label}"] = dict(ms=ms64, kernel_ms=k64, gate_iters=K89_GATE_ITERS,
+                                          ratio=ratio, marginal_ratio=marginal, ratio_64=ratio64,
+                                          marginal_ratio_64=marginal64, step_ns=step_ns,
+                                          step_ns_64=(k64 - k32) / (it // 2) * 1e6,
+                                          plain_ms=pms, library_ms=lms,
+                                          library_last_step_ms=lms_last, bound=bnd,
                                           err=float((got - ref).abs().max()),
-                                          checksum_rel_err=cs_err)
-        log(f"phase16 {key} {label}: mismatches vs plain {mism}, checksum rel err {cs_err:.3g}; "
-            f"call {ms64:.4f} ms ({ms64 / it * 1e3:.3f} us/step) at {it} iters; kernel "
-            f"{k64 * 1e3:.2f} us at {it}, {k32 * 1e3:.2f} us at {it // 2}, {k16 * 1e3:.2f} us at "
-            f"{it // 4}, ratio {ratio:.3f}, marginal ratio {marginal:.3f}; one step's bytes "
-            f"{step_bytes / HBM_BYTES_PER_S * 1e6:.3f} us; call bound {bnd[0] * 1e3:.3f} us "
-            f"({n_cols} distinct columns); plain {pms:.3f} ms; "
-            f"library (row 0 indexed + sum) {lms:.4f} ms")
+                                          checksum_rel_err=cs_err, layout=lay)
+        held = max_clusters(key == "K9", lay["cluster"], lay["smem"])
+        log(f"phase16 {key} {label}: layout {lay}, clusters the card holds at once {held}; "
+            f"mismatches vs plain {mism}, checksum rel err {cs_err:.3g}; call {ms64:.4f} ms "
+            f"({ms64 / it * 1e3:.3f} us/step) at {it} iters; kernel {k64 * 1e3:.2f} us at {it}, "
+            f"{k32 * 1e3:.2f} us at {it // 2}, "
+            f"{k16 * 1e3:.2f} us at {it // 4}, ratio {ratio64:.3f}, marginal ratio "
+            f"{marginal64:.3f}, one step (t{it} - t{it // 2}) / {it // 2} "
+            f"{(k64 - k32) / (it // 2) * 1e6:.2f} ns; gates at {K89_GATE_ITERS}: kernel "
+            f"{kl * 1e3:.2f} us, {kl2 * 1e3:.2f} us at {K89_GATE_ITERS // 2}, {kl4 * 1e3:.2f} us "
+            f"at {K89_GATE_ITERS // 4}, ratio {ratio:.3f}, marginal ratio {marginal:.3f}, one "
+            f"step {step_ns:.2f} ns; one step's bytes {step_bytes / HBM_BYTES_PER_S * 1e6:.3f} "
+            f"us; call bound {bnd[0] * 1e3:.3f} us ({n_cols} distinct columns); plain "
+            f"{pms:.3f} ms; library: {lms:.4f} ms (gather of the {it} steps' {it}x2048 "
+            f"columns), {lms_last:.4f} ms (last step only: row 0 indexed + sum)")
         assert mism == 0, f"{key} {label} is not bit-exact with its plain version"
         assert cs_err <= CHECKSUM_RTOL, f"{key} {label}: checksum disagrees with the plain version"
-        if Ip == bw.IP:
-            assert 1.8 <= ratio <= 2.2, f"{key} {label}: time does not scale with iters"
+        assert 1.8 <= ratio <= 2.2, f"{key} {label}: time does not scale with iters"
         assert 1.8 <= marginal <= 2.2, f"{key} {label}: marginal time does not scale with iters"
     return launches, rows_out
 
@@ -282,20 +325,88 @@ def ldr_within(a, b):
     return float(np.mean(diff <= 2)), float(diff.mean()), int(diff.max())
 
 
+def _walks_by_pixel(w, R):
+    """A spied K3 call's live lanes (t_max > 1e-4) laid out by pixel: (live
+    (R,) bool, {field: (R, ...) tensor})."""
+    live = torch.zeros((R,), dtype=torch.bool)
+    live[w["pix"]] = True
+    dense = {}
+    for k in ("o", "d", "tm", "t", "tri", "steps"):
+        v = w[k]
+        dense[k] = torch.zeros((R,) + tuple(v.shape[1:]), dtype=v.dtype)
+        dense[k][w["pix"]] = v
+    return live, dense
+
+
+def _walk_diff(wg, wc, R):
+    """Lane masks (R,) of one K3 call on the GPU against the same call on the
+    CPU, matched by pixel: live on one side only, inputs (o, d, t_max) not
+    bit-equal, outputs (t, tri, steps) not bit-equal, another triangle hit."""
+    lg, g = _walks_by_pixel(wg, R)
+    lc, c = _walks_by_pixel(wc, R)
+    both = lg & lc
+    in_diff = both & ((g["o"] != c["o"]).any(1) | (g["d"] != c["d"]).any(1)
+                      | (g["tm"] != c["tm"]))
+    out_diff = both & ((g["t"] != c["t"]) | (g["tri"] != c["tri"]) | (g["steps"] != c["steps"]))
+    return dict(only=lg ^ lc, in_diff=in_diff, out_diff=out_diff,
+                tri_diff=both & (g["tri"] != c["tri"]), g=g, c=c, lg=lg, lc=lc)
+
+
 def phase_pt_cuda_vs_cpu(Renderer, Config, W=256, H=192, frames=3):
     """Phase 17: the path tracer on the GPU (kernels) against the CPU (plain
     versions), stress:4, a few accumulated frames. 256x192 = 49,152 lanes,
-    over COMPACT_MIN_LANES: the compacted wavefront, as on the main path."""
+    over COMPACT_MIN_LANES: the compacted wavefront, as on the main path.
+
+    Every K3 walk of both renderers is spied on. Each CUDA walk is held bit
+    for bit against the plain walk on its own inputs. The two runs' walks
+    are matched call for call and, inside a call, lane for lane by pixel
+    (a walk's lanes carry its bounce's pixel ids; compaction reorders
+    them), and the phase reports where the runs part: per call the live
+    lanes whose inputs (o, d, t_max) differ, whose outputs differ, and
+    whose outputs differ on bit-equal inputs (a K3 fault: none may), and
+    the walks where the runs part (a lane live on one side only, or another
+    triangle hit); and for each pixel off by more than 2/255, the first walk
+    where its lane's inputs differ and the walk where it parts, and how."""
     from hobbyrenderer_tpu_torch.models import pathtracer as ptmod
+    from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
     assert W * H >= ptmod.COMPACT_MIN_LANES
+    R = W * H
+    k3_orig, bounce_orig = b16ops.bvh16_walk, ptmod._bounce
+    current = {}                  # device type -> (bounce, the bounce's pixel per lane)
+    walks = {"cuda": [], "cpu": []}
+    k3_mism = []
+
+    def bounce_spy(*a, **kw):
+        p, b = a[5], a[6]
+        current[p.pix.device.type] = (b, p.pix)
+        return bounce_orig(*a, **kw)
+
+    def k3_spy(table, o, d, t_max, any_hit, max_steps=b16ops.UNCAPPED_STEPS, t_min=1e-4):
+        out = k3_orig(table, o, d, t_max, any_hit, max_steps, t_min)
+        dt = o.device.type
+        if dt == "cuda":
+            ref = b16ops.bvh16_walk_reference(table, o, d, t_max, any_hit, max_steps, t_min)
+            k3_mism.append(sum(int((x != y).sum()) for x, y in zip(out, ref)))
+        b, pix = current[dt]
+        live = t_max > 1e-4
+        walks[dt].append(dict(bounce=b, any_hit=any_hit, lanes=o.shape[0],
+                              pix=pix[live].cpu(), o=o[live].cpu(), d=d[live].cpu(),
+                              tm=t_max[live].cpu(), t=out[0][live].cpu(),
+                              tri=out[1][live].cpu(), steps=out[2][live].cpu()))
+        return out
+
     cfg = Config(scene="stress:4", width=W, height=H, mode="path_tracer",
                  cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke4pt"))
     t0 = time.perf_counter()
     rg = Renderer(cfg, device="cuda")
     rc = Renderer(cfg, device="cpu")
-    for _ in range(frames):
-        lg = rg.render_frame().cpu().numpy()
-        lc = rc.render_frame().numpy()
+    b16ops.bvh16_walk, ptmod._bounce = k3_spy, bounce_spy
+    try:
+        for _ in range(frames):
+            lg = rg.render_frame().cpu().numpy()
+            lc = rc.render_frame().numpy()
+    finally:
+        b16ops.bvh16_walk, ptmod._bounce = k3_orig, bounce_orig
     sg, sc_ = rg.stats(), rc.stats()
     rg.shutdown()
     rc.shutdown()
@@ -303,6 +414,68 @@ def phase_pt_cuda_vs_cpu(Renderer, Config, W=256, H=192, frames=3):
     log(f"phase17 path tracer stress:4 {W}x{H} x{frames} frames cuda vs cpu: "
         f"{within * 100:.3f}% of LDR pixels within 2/255, mean |d| {mean:.4f}, max {mx}; stats "
         f"cuda {json.dumps(sg)} cpu {json.dumps(sc_)} ({time.perf_counter() - t0:.1f} s)")
+    n_calls = len(walks["cuda"])
+    assert n_calls == len(walks["cpu"]) and n_calls > 0, (n_calls, len(walks["cpu"]))
+    per_frame = n_calls // frames
+    diffs = [_walk_diff(wg, wc, R) for wg, wc in zip(walks["cuda"], walks["cpu"])]
+    eq_in_fault, parted = 0, 0
+    for k, (w, x) in enumerate(zip(walks["cuda"], diffs)):
+        n_only, n_in = int(x["only"].sum()), int(x["in_diff"].sum())
+        n_out, n_bad = int(x["out_diff"].sum()), int((x["out_diff"] & ~x["in_diff"]).sum())
+        n_tri = int(x["tri_diff"].sum())
+        eq_in_fault += n_bad
+        parted += bool(n_only or n_tri)
+        if (n_only or n_tri) and parted <= 6:          # the first walks where the runs part
+            log(f"  phase17 walk {k} (frame {k // per_frame}, bounce {w['bounce']}, "
+                f"{'NEE any hit' if w['any_hit'] else 'closest hit'}, {w['lanes']} lanes, live "
+                f"cuda {int(x['lg'].sum())} cpu {int(x['lc'].sum())}): live on one side only "
+                f"{n_only}, inputs differ {n_in}, outputs differ {n_out}, another triangle "
+                f"{n_tri}, outputs differ on bit-equal inputs {n_bad}")
+    log(f"phase17 K3 walks: {n_calls} a device; CUDA kernel vs the plain walk on its own inputs: "
+        f"{sum(k3_mism)} mismatches; walks where the runs part {parted}; live lanes whose inputs "
+        f"differ between the runs {sum(int(x['in_diff'].sum()) for x in diffs)}, whose outputs "
+        f"differ {sum(int(x['out_diff'].sum()) for x in diffs)}, on bit-equal inputs "
+        f"{eq_in_fault}")
+    diff_px = np.abs(lg.astype(np.int32) - lc.astype(np.int32)).max(-1)
+    for y, xx in list(zip(*np.nonzero(diff_px > 2)))[:10]:
+        q = int(y) * W + int(xx)
+        first_in = next((k for k, x in enumerate(diffs) if x["in_diff"][q]), None)
+        part = next((k for k, x in enumerate(diffs) if x["only"][q] or x["tri_diff"][q]), None)
+        head = (f"  phase17 pixel ({y}, {xx}) off by {diff_px[y, xx]}: its lane's walk inputs "
+                + ("never differ" if first_in is None else f"first differ in walk {first_in}"))
+        if part is None:
+            log(f"{head}; no walk of its lane differs in liveness or triangle (the runs part "
+                f"in the shading)")
+            continue
+        x, w = diffs[part], walks["cuda"][part]
+        g, c = x["g"], x["c"]
+        if x["only"][q]:
+            what = "live on the " + ("GPU" if x["lg"][q] else "CPU") + " only"
+        elif x["in_diff"][q]:
+            what = (f"another triangle, on inputs that differ (|do| "
+                    f"{float((g['o'][q] - c['o'][q]).abs().max()):.3g}, |dd| "
+                    f"{float((g['d'][q] - c['d'][q]).abs().max()):.3g}, |dt_max| "
+                    f"{float((g['tm'][q] - c['tm'][q]).abs()):.3g})")
+        else:
+            what = "another triangle on bit-equal inputs"
+        log(f"{head}; the runs part in walk {part} (frame {part // per_frame}, bounce "
+            f"{w['bounce']}, {'NEE any hit' if w['any_hit'] else 'closest hit'}): {what}; tri "
+            f"cuda {int(g['tri'][q])} cpu {int(c['tri'][q])}, t cuda {float(g['t'][q]):.9g} cpu "
+            f"{float(c['t'][q]):.9g}, steps cuda {int(g['steps'][q])} cpu {int(c['steps'][q])}")
+        hist = []                           # its lane in that frame's walks up to the part
+        for kk in range(part - part % per_frame, part + 1):
+            xk, wk_ = diffs[kk], walks["cuda"][kk]
+            gk, ck = xk["g"], xk["c"]
+            hist.append(f"{wk_['bounce']}{'n' if wk_['any_hit'] else 'c'}:"
+                        f"live {int(xk['lg'][q])}/{int(xk['lc'][q])} "
+                        f"|do| {float((gk['o'][q] - ck['o'][q]).abs().max()):.3g} "
+                        f"|dd| {float((gk['d'][q] - ck['d'][q]).abs().max()):.3g} "
+                        f"|dt_max| {float((gk['tm'][q] - ck['tm'][q]).abs()):.3g} "
+                        f"tri {int(gk['tri'][q])}/{int(ck['tri'][q])}")
+        log(f"  phase17 pixel ({y}, {xx}), its lane in frame {part // per_frame}'s walks "
+            f"(bounce, c closest / n NEE; cuda/cpu): {'; '.join(hist)}")
+    assert sum(k3_mism) == 0, "K3 is not bit-exact with the plain walk on phase 17's inputs"
+    assert eq_in_fault == 0, "the CUDA and CPU walks differ on bit-equal inputs"
     assert within >= 0.99, within
     return within
 
@@ -459,10 +632,15 @@ def phase_golden(Renderer, Config, frames=24, spp=(192, 96)):
             # the same compacted 16-spp frame again, in a new renderer: bit-identical
             r2 = pt_renderer(W, H)
             r2.render_frame(dt=0.0)
-            same = torch.equal(r2._model.accum, first)
-            r2.shutdown()
+            again = r2._model.accum
+            same = torch.equal(again, first)
+            n_bits = int((again.view(torch.int32) != first.view(torch.int32)).sum())
             log(f"phase19 PT {W}x{H} 16 spp ({W * H * 16} lanes, compacted): first frame "
-                f"rendered twice bit-identical: {same}")
+                f"rendered twice bit-identical: {same}" + ("" if same else
+                f" (values differing {n_bits}, non-finite {int((~torch.isfinite(first)).sum())}"
+                f" / {int((~torch.isfinite(again)).sum())}, max |d| "
+                f"{float((again - first).abs().nan_to_num(0.0).max()):.3g})"))
+            r2.shutdown()
             assert same, "the compacted spp > 1 frame is not deterministic"
         return _ldr01(ldr)
 
@@ -1223,18 +1401,16 @@ def main():
     def wk_entry(name, key, replaces, variants):
         # ms: the kernel's own device time (CUPTI); call_ms adds the launch
         x = wk_rows[variants[0]]          # the script's first variant of the kernel
+        keep = ("ms", "kernel_ms", "gate_iters", "ratio", "marginal_ratio", "ratio_64",
+                "marginal_ratio_64", "step_ns", "step_ns_64", "checksum_rel_err", "plain_ms",
+                "library_ms", "library_last_step_ms", "layout")
         return entry(name, "hobbyrenderer_tpu_torch/csrc/wkernels.cu", replaces, key, x["err"],
                      x["kernel_ms"], x["plain_ms"], x["bound"], main=launches_wk,
                      library_ms=x["library_ms"], iters=64, call_ms=x["ms"],
-                     kernel_ratio_64_over_32=x["ratio"],
+                     gate_iters=x["gate_iters"], kernel_ratio=x["ratio"],
                      kernel_marginal_ratio=x["marginal_ratio"],
                      checksum_rel_err=x["checksum_rel_err"],
-                     variants={k: dict(ms=wk_rows[k]["kernel_ms"], call_ms=wk_rows[k]["ms"],
-                                       ratio=wk_rows[k]["ratio"],
-                                       marginal_ratio=wk_rows[k]["marginal_ratio"],
-                                       checksum_rel_err=wk_rows[k]["checksum_rel_err"],
-                                       plain_ms=wk_rows[k]["plain_ms"],
-                                       library_ms=wk_rows[k]["library_ms"],
+                     variants={k: dict({f: wk_rows[k][f] for f in keep if f in wk_rows[k]},
                                        bound_ms=wk_rows[k]["bound"][0]) for k in variants})
 
     kernels_line = {"kernels": [

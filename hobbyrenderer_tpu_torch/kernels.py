@@ -57,8 +57,10 @@ _SIGNATURES = {
     "hr_closest_hit_blocks": (_VP,) * 8 + (_I, _I, _F, _VP),
     # idx, leaf, buf, out, checksum, rows, iters, n_leaf, stream
     "hr_wk_leaf_gather": (_VP,) * 5 + (_I,) * 3 + (_VP,),
-    # idx, tab, out, checksum, iters, Ip, hc, stream
-    "hr_wk_int_fetch": (_VP,) * 4 + (_I,) * 3 + (_VP,),
+    # idx, tab, out, checksum, iters, Ip, hc, cluster, cols, pitch, smem, stream
+    "hr_wk_int_fetch": (_VP,) * 4 + (_I,) * 7 + (_VP,),
+    # hc, cluster, smem, n_out
+    "hr_wk_int_fetch_max_clusters": (_I,) * 3 + (_VP,),
 }
 
 

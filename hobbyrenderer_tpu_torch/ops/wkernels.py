@@ -9,7 +9,9 @@ Pallas microkernels k1 / k2 / k2b of scripts/bench_wkernels.py).
   and ``int_fetch_hc`` (K9, the same fetch from the hc-ordered table, row
   h*96 + c = tab[c, 128h + l]): per step i and sub-row g the 96-value
   column of (idx[g] + i) % Ip; returns (1, 128) f32, the sum over g = 0..15
-  (in that order) of row 0 of the last step's columns.
+  (in that order) of row 0 of the last step's columns. Their kernel holds
+  the table in shared memory across a thread-block cluster; the slices'
+  layout is ``int_fetch_layout``.
 
 Each kernel also writes a checksum of every value it fetched, a side output
 that keeps the compiler from dropping the repeat loop (the TPU numbers were
@@ -30,6 +32,9 @@ LANE = 128
 SUB = 16              # sub-rows of 128 lanes: idx is (16, 128)
 RB = SUB * LANE       # the leaf buffer's rows (2048)
 NCOL = 96             # interior values per column (16 child boxes x 6)
+
+SMEM_LIMIT = 232_448  # shared bytes one CTA may use on the H100
+MAX_CLUSTER = 8       # the largest portable thread-block cluster
 
 leaf_launches = 0     # K7 launches (plain calls are not counted)
 int_launches = 0      # K8
@@ -86,16 +91,49 @@ def _sum_subrows(vals):
     return acc[None]
 
 
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _layout(Ip: int, cluster: int):
+    cols = _ceil_div(_ceil_div(Ip, cluster), 8) * 8      # runs of 8 (16-byte staging loads)
+    return dict(cluster=cluster, cols=cols, pitch=NCOL,
+                smem=cols * NCOL * 2 + SUB * 4)          # the slice, then row 0 of 16 sub-rows
+
+
+def int_fetch_layout(Ip: int, hc: bool) -> dict:
+    """K8's (hc False) or K9's (hc True) shared-memory layout: the table in
+    slices across a thread-block cluster of ``cluster`` CTAs, CTA rank r
+    holding columns [r * cols, (r + 1) * cols) column-major (value c of its
+    local column j at j * pitch + c), and ``smem`` shared bytes a CTA. A
+    column's 96 values are 192 contiguous bytes, read as twelve 16-byte
+    pieces, which an 8-lane phase takes from 32 distinct banks. One CTA
+    holds the whole table where it fits (Ip 512), else a cluster of 8. The
+    hc table (K9) is sliced the same way: its 8-column runs never cross a
+    128-column block. Raises when the table does not fit a cluster of 8."""
+    if hc and Ip % LANE:
+        raise ValueError(f"the hc table needs Ip a multiple of 128, got {Ip}")
+    lay = _layout(Ip, 1)
+    if lay["smem"] > SMEM_LIMIT:
+        lay = _layout(Ip, MAX_CLUSTER)
+    if lay["smem"] > SMEM_LIMIT:
+        raise ValueError(f"a (96, {Ip}) table needs {lay['smem']} shared bytes a CTA in a "
+                         f"cluster of {MAX_CLUSTER}, over {SMEM_LIMIT}")
+    return lay
+
+
 def _int_fetch(idx, tab, iters: int, Ip: int, hc: bool):
     global int_launches, hc_launches
     kernels.require(idx, "idx", torch.int32, (SUB, LANE))
     kernels.require(tab, "tab", torch.bfloat16)
+    lay = int_fetch_layout(Ip, hc)
     dev = tab.device
     out = torch.empty((LANE,), dtype=torch.float32, device=dev)
     checksum = torch.empty((SUB, LANE), dtype=torch.float32, device=dev)
-    err = kernels.library().hr_wk_int_fetch(idx.data_ptr(), tab.data_ptr(), out.data_ptr(),
-                                            checksum.data_ptr(), int(iters), int(Ip), int(hc),
-                                            kernels.stream_handle(dev))
+    err = kernels.library().hr_wk_int_fetch(
+        idx.data_ptr(), tab.data_ptr(), out.data_ptr(), checksum.data_ptr(), int(iters),
+        int(Ip), int(hc), lay["cluster"], lay["cols"], lay["pitch"], lay["smem"],
+        kernels.stream_handle(dev))
     kernels.check(err, "hr_wk_int_fetch")
     if hc:
         hc_launches += 1

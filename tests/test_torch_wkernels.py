@@ -96,6 +96,47 @@ def test_int_fetch_matches_pallas(script, hc):
     np.testing.assert_array_equal(want[0], acc)
 
 
+@pytest.mark.parametrize("Ip, hc", [(4480, False), (512, False), (4480, True)],
+                         ids=["k8-4480", "k8-512", "k9-4480"])
+def test_int_fetch_layout(Ip, hc):
+    """The kernel's shared-memory layout (computed here, passed to the
+    kernel): every column (K8) or 128-column hc block (K9) is owned by
+    exactly one CTA of the cluster (K9's blocks may span two CTAs' slices,
+    each column of them in one), a CTA's slice fits its shared memory, and
+    one column's 96 values are 192 contiguous 16-byte-aligned bytes, so a
+    warp reads them as twelve 16-byte pieces, each 8-lane phase from 32
+    distinct 4-byte banks."""
+    lay = wk.int_fetch_layout(Ip, hc)
+    C, cols, pitch = lay["cluster"], lay["cols"], lay["pitch"]
+    assert C in (1, 2, 4, 8) and wk.LANE % C == 0 and cols % 8 == 0
+    owner = np.full(Ip, -1)
+    for r in range(C):          # CTA rank r holds columns [r * cols, (r + 1) * cols)
+        seg = owner[r * cols:(r + 1) * cols]
+        assert (seg == -1).all()
+        seg[:] = r
+    assert (owner >= 0).all()
+    if hc:                      # every 8-column staging run lies inside one hc block
+        runs = np.arange(0, Ip, 8)
+        assert (runs // wk.LANE == (runs + 7) // wk.LANE).all()
+    assert pitch >= wk.NCOL and pitch * 2 % 16 == 0
+    assert cols * pitch * 2 <= lay["smem"] <= wk.SMEM_LIMIT == 232_448
+    for j in (0, 1, cols - 1):  # local column j: byte j * pitch * 2, pieces 16 B each
+        words = [(j * pitch * 2 + 16 * k) // 4 + w for k in range(wk.NCOL // 8) for w in range(4)]
+        for phase in range(0, len(words), 32):
+            banks = [w % 32 for w in words[phase:phase + 32]]
+            assert len(set(banks)) == len(banks), (j, phase, banks)
+    assert (C == 1) == (Ip == 512)     # one CTA holds the Ip-512 table, Ip 4480 needs 8
+
+
+def test_int_fetch_layout_rejects_a_table_too_large_for_a_cluster():
+    # 96 x 10,000 bf16 is 1.92 MB: an eighth of it is over a CTA's 232,448 bytes
+    assert wk.int_fetch_layout(9600, False)["cluster"] == wk.MAX_CLUSTER
+    with pytest.raises(ValueError):
+        wk.int_fetch_layout(10_000, False)
+    with pytest.raises(ValueError):
+        wk.int_fetch_layout(500, True)       # the hc table needs whole 128-column blocks
+
+
 def test_wrappers_reject_bad_shapes():
     idx = torch.zeros((wk.SUB, wk.LANE), dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -106,13 +147,21 @@ def test_wrappers_reject_bad_shapes():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_gpu():
+    """On the card, at the script's full shapes and 64 steps: K7 and K8 / K9
+    (every variant) against their plain versions, `out` bit-exact and the
+    checksum within 1e-5 relative (its sums run in another order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
-    from hobbyrenderer_tpu_torch.bench_wkernels import make_inputs
+    from hobbyrenderer_tpu_torch.bench_wkernels import IP, ITERS, make_inputs
     x = make_inputs(torch.device("cuda"))
     got, _ = wk.leaf_gather(x["idx_rand"], x["leaf"], 512, 4)
     want, _ = wk.leaf_gather_reference(x["idx_rand"], x["leaf"], 512, 4)
     assert torch.equal(got, want)
-    for fn, ref, tab in ((wk.int_fetch, wk.int_fetch_reference, x["tab"]),
-                         (wk.int_fetch_hc, wk.int_fetch_hc_reference, x["tab_hc"])):
-        assert torch.equal(fn(x["idx_ip"], tab, 4, 4480)[0], ref(x["idx_ip"], tab, 4, 4480)[0])
+    for fn, ref, idx, tab, Ip in (
+            (wk.int_fetch, wk.int_fetch_reference, x["idx_ip"], x["tab"], IP),
+            (wk.int_fetch, wk.int_fetch_reference, x["idx_512"], x["tab512"], 512),
+            (wk.int_fetch_hc, wk.int_fetch_hc_reference, x["idx_ip"], x["tab_hc"], IP)):
+        got, cs = fn(idx, tab, ITERS, Ip)
+        want, want_cs = ref(idx, tab, ITERS, Ip)
+        assert torch.equal(got, want)
+        assert float(((cs - want_cs).abs() / want_cs.abs()).max()) <= 1e-5
