@@ -37,9 +37,12 @@ sorted-block closest hit (csrc/closest_blocks.cu), K7-K9 the walk-step
 microbenchmarks (csrc/wkernels.cu). Each one's bound
 (bound_ms) is the larger of its bytes (inputs read once, outputs written
 once; of the walks' node tables, K3, K4 and K6, only the rows this run's
-rays read) over 3.35 TB/s and its fp32 operations on this run's data over
+rays read, for K3 the 384 B of an interior row or 480 B of a leaf row that
+a step reads) over 3.35 TB/s and its fp32 operations on this run's data over
 67 TFLOP/s (H100 SXM data sheet). K2, K3, K5, K6 and K7-K9 must equal
-their plain versions bit for bit, in every output.
+their plain versions bit for bit, in every output; K3, which hands rays
+out through an atomic queue, is launched three times on each walk of
+phases 7 and 18 and must give the same bits each time.
 
 Output, in order: the card's name and power limit, versions, build time,
 one line per phase, the kernels JSON line, and last
@@ -159,11 +162,45 @@ def iters_scaling(fn, name, it):
     return k64, k32, k16, k64 / k32, (k64 - k32) / (k32 - k16)
 
 
+def k3_check(walk, reps=5):
+    """K3 on one captured walk (table, o, d, t_max, any_hit, max_steps,
+    t_min): three launches (their outputs must be torch.equal: the rays come
+    from an atomic queue), the plain walk with the rows it reads, mismatches
+    of every output, kernel and plain ms, ray-steps a second, the bound
+    (``bench_k3.walk_bound``: the rays, the outputs and the rows read, or
+    432 fp32 operations a step: 16 slab tests of 27) and the launch grid."""
+    from hobbyrenderer_tpu_torch import bench_k3, kernels
+    from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
+    tab, o, d, tm, any_hit, steps, t_min = walk
+    runs = [b16ops.bvh16_walk(tab, o, d, tm, any_hit, steps, t_min) for _ in range(3)]
+    pt, ptri, ps, rows = b16ops.bvh16_walk_reference(tab, o, d, tm, any_hit, steps, t_min,
+                                                     return_visited=True)
+    torch.cuda.synchronize()
+    bt, btri, bs = runs[0]
+    repeat_equal = all(torch.equal(a, b) for r_ in runs[1:] for a, b in zip(runs[0], r_))
+    mis = {k: int((a != b).sum()) for k, a, b in (("tri", btri, ptri), ("t", bt, pt),
+                                                  ("steps", bs, ps))}
+    ms = cuda_ms(lambda: b16ops.bvh16_walk(tab, o, d, tm, any_hit, steps, t_min), reps)
+    pms = cuda_ms(lambda: b16ops.bvh16_walk_reference(tab, o, d, tm, any_hit, steps, t_min),
+                  reps=1)
+    n_rows, n_steps = int(rows.sum()), int(ps.sum())
+    bnd = bench_k3.walk_bound(tab, o.shape[0], rows, n_steps)
+    resident = b16ops._resident_ctas(kernels.library(), o.device)
+    return dict(out=(bt, btri, bs), ref=(pt, ptri, ps), mis=mis, repeat_equal=repeat_equal,
+                ms=ms, plain_ms=pms, bound=bnd, rows=n_rows, steps=n_steps,
+                gsteps=n_steps / (ms * 1e-3) / 1e9, err=float((bt - pt).abs().max()),
+                plan=f"grid {b16ops.launch_grid(o.shape[0], resident)} CTAs of 256 threads "
+                     f"({resident} resident)")
+
+
 def rel_err(got, ref):
     """Largest relative difference of two all-positive tensors."""
     return float(((got - ref).abs() / ref.abs()).max())
 
 
+PTXAS_KERNELS = ("raster_resolve_kernel", "raster_tiles_kernel", "beam_any_hit_kernel",
+                 "restir_candidates_kernel", "bvh16_walk_kernel", "closest_blocks_kernel",
+                 "leaf_gather_kernel", "int_fetch_kernel")
 CHECKSUM_RTOL = 1e-5     # sums in another order; a skipped row or step moves it >= 1/64
 K89_GATE_ITERS = 4096    # K8's and K9's scaling gates read at 4,096 / 2,048 / 1,024 steps
 ONE_CTA_AN_SM_BYTES = 200_000    # shared bytes a CTA that leave room for one CTA an SM
@@ -563,29 +600,24 @@ def phase_pt_main(Renderer, Config, reset_counts, counts, n_frames=8):
     assert sum(v for k, v in launches.items() if k != "K3") == 0, launches
     assert sorted(walks) == ["NEE compacted", "closest full width"], sorted(walks)
     k3_rows = []
-    for name, (tab, o, d, tm, any_hit, steps, t_min) in sorted(walks.items()):
-        bt, btri, bs = b16ops.bvh16_walk(tab, o, d, tm, any_hit, steps, t_min)
-        pt, ptri, ps, rows = b16ops.bvh16_walk_reference(tab, o, d, tm, any_hit, steps, t_min,
-                                                         return_visited=True)
-        torch.cuda.synchronize()
-        mis = {k: int((a != b).sum()) for k, a, b in (("tri", btri, ptri), ("t", bt, pt),
-                                                      ("steps", bs, ps))}
-        ms = cuda_ms(lambda: b16ops.bvh16_walk(tab, o, d, tm, any_hit, steps, t_min))
-        pms = cuda_ms(lambda: b16ops.bvh16_walk_reference(tab, o, d, tm, any_hit, steps, t_min),
-                      reps=1)
-        # as phase 7: the rows read, rays and outputs; >= 432 fp32 ops a step
-        bnd = bound(int(rows.sum()) * tab.shape[1] * 4 + nbytes(o, d, tm, bt, btri, bs),
-                    int(ps.sum()) * 432)
+    for name, walk in sorted(walks.items()):
+        tab, o, d, tm, any_hit, steps, t_min = walk
+        x = k3_check(walk)
+        _, ptri, ps = x["ref"]
         live = tm > 1e-4            # the masked lanes walk with t_max 1e-4
-        k3_rows.append(dict(name=f"pt {name}", rays=o.shape[0], ms=ms, plain_ms=pms, bound=bnd,
-                            err=float((bt - pt).abs().max())))
+        k3_rows.append(dict(name=f"pt {name}", rays=o.shape[0], ms=x["ms"],
+                            plain_ms=x["plain_ms"], bound=x["bound"], err=x["err"],
+                            gsteps=x["gsteps"]))
         log(f"phase18 K3 {name} rays={o.shape[0]} (live {int(live.sum())}) any_hit={any_hit} "
-            f"max_steps={steps}: mismatches vs plain {mis}, hit share of live "
+            f"max_steps={steps}: mismatches vs plain {x['mis']}, three launches equal "
+            f"{x['repeat_equal']}, hit share of live "
             f"{float((ptri >= 0)[live].float().mean()):.3f}, mean steps of live "
-            f"{float(ps[live].float().mean()):.2f}, max {int(ps.max())}, rows read "
-            f"{int(rows.sum())} of {tab.shape[0]}; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-        assert not any(mis.values()), f"K3 {name} is not bit-exact with its plain version"
+            f"{float(ps[live].float().mean()):.2f}, of all {x['steps'] / o.shape[0]:.2f}, max "
+            f"{int(ps.max())}, rows read {x['rows']} of {tab.shape[0]}; {x['plan']}; kernel "
+            f"{x['ms']:.4f} ms ({x['gsteps']:.2f} G ray-steps/s), plain {x['plain_ms']:.3f} ms, "
+            f"bound {x['bound'][0]:.4f} ms ({x['bound'][1]})")
+        assert not any(x["mis"].values()), f"K3 {name} is not bit-exact with its plain version"
+        assert x["repeat_equal"], f"three K3 launches on {name} gave different outputs"
     return dict(setup=setup, ms=med, msamples=msamples, launches=launches,
                 dropped=[s_["pt_dropped_lanes"] for s_ in stats], k3_rows=k3_rows)
 
@@ -691,6 +723,7 @@ def main():
               "an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from hobbyrenderer_tpu_torch import bench_k3
     from hobbyrenderer_tpu_torch import bench_wkernels as bw
     from hobbyrenderer_tpu_torch import kernels
     from hobbyrenderer_tpu_torch.config import Config
@@ -698,7 +731,6 @@ def main():
     from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
     from hobbyrenderer_tpu_torch.ops import raster_kernel as rk
     from hobbyrenderer_tpu_torch.ops import restir_kernel as rko
-    from hobbyrenderer_tpu_torch.ops import sampling as smp
     from hobbyrenderer_tpu_torch.ops import sky as skyops
     from hobbyrenderer_tpu_torch.ops import trace as traceops
     from hobbyrenderer_tpu_torch.ops import trace_kernel as tk
@@ -732,12 +764,18 @@ def main():
     kernels.library()
     log(f"phase1 build: kernels built+loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 'cached'} s)")
+    # -Xptxas -v: each kernel's registers, static shared memory and spills (K3's
+    # top-level rows are dynamic shared memory: phase 7 prints their bytes)
     ptxas = [p for p in os.listdir(kernels.BUILD_DIR) if p.endswith(".ptxas.txt")]
     for p in ptxas:
         with open(os.path.join(kernels.BUILD_DIR, p)) as f:
             for line in f:
-                if "registers" in line or "spill" in line:
-                    log("  ptxas: " + line.strip())
+                if "Compiling entry function" in line:
+                    name = line.split("'")[1]
+                    log("  ptxas: " + next((k + name[name.index(k) + len(k):][:8]
+                                            for k in PTXAS_KERNELS if k in name), name))
+                elif "registers" in line or "spill" in line:
+                    log("  ptxas:   " + line.strip())
 
     # ---- capture the first 1080p stress frame's kernel inputs ---------------
     t0 = time.perf_counter()
@@ -917,51 +955,31 @@ def main():
     # ---- phase 7: K3 against its plain version ------------------------------
     # the captured any-hit walks (stragglers, reduced-rate mismatches) and 64k
     # closest-hit rays from G-buffer points, cosine-distributed about the normal
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    vpix = torch.nonzero(gb.valid.reshape(-1)).flatten()
-    pick = vpix[torch.linspace(0, vpix.numel() - 1, 65536, device="cuda").round().long()]
-    n_ = gb.normal.reshape(-1, 3)[pick]
-    o_ = gb.world_pos.reshape(-1, 3)[pick] + gb.geo_normal.reshape(-1, 3)[pick] * 0.05
-    u1 = torch.rand(65536, device="cuda", generator=gen)
-    u2 = torch.rand(65536, device="cuda", generator=gen)
-    local = torch.stack([torch.sqrt(u1) * torch.cos(6.283185307 * u2),
-                         torch.sqrt(u1) * torch.sin(6.283185307 * u2),
-                         torch.sqrt(1.0 - u1)], -1)
-    d_ = smp.to_world(n_, local).contiguous()
-    tmax_ = torch.full((65536,), b16ops.INF, device="cuda")
     walks = [(f"any[{i}]", c) for i, c in enumerate(cap["k3"])]
-    walks.append(("closest64k", (table16, o_.contiguous(), d_, tmax_, False,
+    walks.append(("closest64k", (table16, *bench_k3.gbuffer_rays(gb), False,
                                  b16ops.UNCAPPED_STEPS, 1e-4)))
     k3_rows = []
-    for name, (tab, o, d, tm, any_hit, steps, t_min) in walks:
-        bt, btri, bs = b16ops.bvh16_walk(tab, o, d, tm, any_hit, steps, t_min)
-        pt, ptri, ps, rows = b16ops.bvh16_walk_reference(tab, o, d, tm, any_hit, steps, t_min,
-                                                         return_visited=True)
-        torch.cuda.synchronize()
-        tri_mis = int((btri != ptri).sum())
-        t_mis = int((bt != pt).sum())
-        step_mis = int((bs != ps).sum())
+    for name, walk in walks:
+        tab, o, d, tm, any_hit, steps, t_min = walk
+        x = k3_check(walk)
+        bt, btri, bs = x["out"]
+        pt, ptri, ps = x["ref"]
         hit = ptri >= 0
         occ_mis = int((((btri >= 0) & (bt < tm)) != (hit & (pt < tm))).sum())
         capped = float(((ps >= steps) & ~hit).float().mean())
-        ms = cuda_ms(lambda: b16ops.bvh16_walk(tab, o, d, tm, any_hit, steps, t_min))
-        pms = cuda_ms(lambda: b16ops.bvh16_walk_reference(tab, o, d, tm, any_hit, steps, t_min),
-                      reps=3)
-        # bytes: the rows the walk reads (the plain walk reads the same), the
-        # rays and the outputs; >= 432 fp32 ops per step (16 slab tests of 27)
-        n_rows = int(rows.sum())
-        bnd = bound(n_rows * tab.shape[1] * 4 + nbytes(o, d, tm, bt, btri, bs),
-                    int(ps.sum()) * 432)
-        k3_rows.append(dict(name=name, rays=o.shape[0], ms=ms, plain_ms=pms, bound=bnd,
-                            err=float((bt - pt).abs().max())))
+        k3_rows.append(dict(name=name, rays=o.shape[0], ms=x["ms"], plain_ms=x["plain_ms"],
+                            bound=x["bound"], err=x["err"], gsteps=x["gsteps"]))
         log(f"phase7 K3 {name} rays={o.shape[0]} any_hit={any_hit} max_steps={steps}: "
-            f"tri mismatch {tri_mis}, t mismatch {t_mis}, occlusion mismatch {occ_mis}, "
-            f"steps mismatch {step_mis}, hit share {float(hit.float().mean()):.3f}, capped "
-            f"share {capped:.4f}, mean steps {float(ps.float().mean()):.2f}, rows read "
-            f"{n_rows} of {tab.shape[0]}; kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
-            f"{bnd[0]:.4f} ms ({bnd[1]})")
-        assert tri_mis == 0 and t_mis == 0 and step_mis == 0 and occ_mis == 0, \
+            f"tri mismatch {x['mis']['tri']}, t mismatch {x['mis']['t']}, occlusion mismatch "
+            f"{occ_mis}, steps mismatch {x['mis']['steps']}, three launches equal "
+            f"{x['repeat_equal']}, hit share {float(hit.float().mean()):.3f}, capped share "
+            f"{capped:.4f}, mean steps {x['steps'] / o.shape[0]:.2f}, rows read {x['rows']} of "
+            f"{tab.shape[0]}; {x['plan']}; kernel {x['ms']:.4f} ms ({x['gsteps']:.2f} G "
+            f"ray-steps/s), plain {x['plain_ms']:.3f} ms, bound {x['bound'][0]:.4f} ms "
+            f"({x['bound'][1]})")
+        assert not any(x["mis"].values()) and occ_mis == 0, \
             f"K3 {name} is not bit-exact with its plain version"
+        assert x["repeat_equal"], f"three K3 launches on {name} gave different outputs"
     k3_main = max(k3_rows, key=lambda x: x["rays"] if x["name"] != "closest64k" else -1)
     del gb
 
@@ -1424,7 +1442,8 @@ def main():
               "hobbyrenderer_tpu/ops/wtrace.py:71", "K3", k3_main["err"], k3_main["ms"],
               k3_main["plain_ms"], k3_main["bound"], rays=k3_main["rays"],
               walks={x["name"]: [x["rays"], x["ms"], x["plain_ms"], x["bound"][0]]
-                     for x in k3_rows + pt["k3_rows"]}),
+                     for x in k3_rows + pt["k3_rows"]},
+              gsteps_per_s={x["name"]: x["gsteps"] for x in k3_rows + pt["k3_rows"]}),
         entry("beam_any_hit_tiles", "hobbyrenderer_tpu_torch/csrc/beam_any_hit.cu",
               "hobbyrenderer_tpu/ops/beam.py:68", "K4", k4_err, k4_ms, k4_plain_ms, k4_bound),
         entry("raster_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",

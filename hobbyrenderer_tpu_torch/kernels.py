@@ -50,9 +50,11 @@ _SIGNATURES = {
     # flat3, tsel, planes, cam, y, u, v, w_sum, row, Hp, Wp, T, N, frame, y0,
     # w_log, stream
     "hr_restir_candidates": (_VP,) * 9 + (_I,) * 7 + (_VP,),
-    # table, o, d, tmax, best_t, best_tri, steps, R, I, M, any_hit,
-    # max_steps, t_min, stream
-    "hr_bvh16_walk": (_VP,) * 7 + (_I,) * 5 + (_F, _VP),
+    # table, o, d, tmax, best_t, best_tri, steps, queue, R, I, M, any_hit,
+    # max_steps, t_min, grid, stream
+    "hr_bvh16_walk": (_VP,) * 8 + (_I,) * 5 + (_F, _I, _VP),
+    # n_out
+    "hr_bvh16_walk_ctas_per_sm": (_VP,),
     # rays, table, t, tri, u, v, front, ovf, T, N, t_min, stream
     "hr_closest_hit_blocks": (_VP,) * 8 + (_I, _I, _F, _VP),
     # idx, leaf, buf, out, checksum, rows, iters, n_leaf, stream

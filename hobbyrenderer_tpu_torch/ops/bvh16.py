@@ -18,12 +18,15 @@ records, any-hit exit on the first hit, and an iteration cap ``max_steps``.
 
 ``bvh16_walk`` launches csrc/bvh16_walk.cu for CUDA tensors and runs
 ``bvh16_walk_reference`` (a lockstep wavefront over the live rays, one phase)
-for CPU tensors; nothing else chooses. The JAX walk's phased compaction
-(PHASES16) and its bf16 one-hot MXU interior fetch are TPU scaffolding and
-are not ported."""
+for CPU tensors; nothing else chooses. The kernel walks a ray with a
+half-warp, in as many CTAs as the card keeps resident (``launch_grid``),
+which take rays from a queue the kernel leaves at zero. The JAX
+walk's phased compaction (PHASES16) and its bf16 one-hot MXU interior fetch
+are TPU scaffolding and are not ported."""
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -41,6 +44,7 @@ UNCAPPED_STEPS = 12 + 12 + 24 + 384
 INF = 3.0e38
 
 launches = 0      # kernel launches (CPU reference calls are not counted)
+RAYS_A_CTA = 16   # K3's CTA: 256 threads, a half-warp a ray
 
 
 class BVH16(NamedTuple):
@@ -166,6 +170,38 @@ def _dims(table):
     return (L - 1) // 15, max(m, 1)
 
 
+def launch_grid(R: int, resident_ctas: int) -> int:
+    """Persistent CTAs: as many as the card keeps resident, fewer when R
+    rays give fewer than a half-warp each."""
+    return max(1, min(resident_ctas, -(-R // RAYS_A_CTA)))
+
+
+_resident = {}    # device index -> K3's resident CTAs on the card
+_queues = {}      # (device index, stream) -> K3's ray queue, left at zero
+
+
+def _resident_ctas(lib, device) -> int:
+    if device.index not in _resident:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            kernels.check(lib.hr_bvh16_walk_ctas_per_sm(ctypes.addressof(out)),
+                          "hr_bvh16_walk_ctas_per_sm")
+        if out.value < 1:
+            raise RuntimeError("K3 does not fit an SM")
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        _resident[device.index] = n_sm * out.value
+    return _resident[device.index]
+
+
+def _queue(device, stream) -> torch.Tensor:
+    """The ray queue of walks on this stream: zeroed once; each launch
+    leaves it at zero, and launches on one stream run one after another."""
+    key = (device.index, stream)
+    if key not in _queues:
+        _queues[key] = torch.zeros((2,), dtype=torch.int32, device=device)
+    return _queues[key]
+
+
 def _bvh16_walk_cuda(table, o, d, t_max, any_hit, max_steps, t_min):
     global launches
     R = o.shape[0]
@@ -175,17 +211,21 @@ def _bvh16_walk_cuda(table, o, d, t_max, any_hit, max_steps, t_min):
     kernels.require(t_max, "t_max", torch.float32, (R,))
     if not (table.device == o.device == d.device == t_max.device):
         raise ValueError("table and rays must be on the same device")
+    if not t_min >= 0.0:
+        raise ValueError(f"K3 takes t_min >= 0, got {t_min}")
     I, M = _dims(table)
     if M > 6:
         raise ValueError(f"bvh16 depth {M} above the kernel's trail of 6 levels")
     lib = kernels.library()
+    stream = kernels.stream_handle(o.device)
     best_t = torch.empty((R,), dtype=torch.float32, device=o.device)
     best_tri = torch.empty((R,), dtype=torch.int32, device=o.device)
     steps = torch.empty((R,), dtype=torch.int32, device=o.device)
     err = lib.hr_bvh16_walk(table.data_ptr(), o.data_ptr(), d.data_ptr(),
                             t_max.data_ptr(), best_t.data_ptr(), best_tri.data_ptr(),
-                            steps.data_ptr(), R, I, M, int(bool(any_hit)),
-                            int(max_steps), float(t_min), kernels.stream_handle(o.device))
+                            steps.data_ptr(), _queue(o.device, stream).data_ptr(), R, I, M,
+                            int(bool(any_hit)), int(max_steps), float(t_min),
+                            launch_grid(R, _resident_ctas(lib, o.device)), stream)
     kernels.check(err, "hr_bvh16_walk")
     launches += 1
     return best_t, best_tri, steps

@@ -123,7 +123,11 @@ def refresh_pool_power(pool: LightPool, gpu) -> LightPool:
     alive_e = (torch.arange(pe.shape[0], device=pe.device) + A) < pool.n_total
     p = torch.cat([pa, torch.where(alive_e, torch.clamp(pe, min=1e-8), 0.0)])
     pdf = p / torch.clamp(torch.sum(p), min=1e-20)
-    return pack_pool(pool._replace(power_cdf=torch.cumsum(pdf, 0), power_pdf=pdf), gpu)
+    # the CDF is summed on the host: a float cumsum on CUDA may add in
+    # another order from run to run, and an ulp at a boundary moves a sample
+    # to the next light (set-up only: one copy each way)
+    cdf = torch.cumsum(pdf.cpu(), 0).to(pdf.device)
+    return pack_pool(pool._replace(power_cdf=cdf, power_pdf=pdf), gpu)
 
 
 def pack_pool(pool: LightPool, gpu) -> LightPool:

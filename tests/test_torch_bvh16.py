@@ -10,6 +10,9 @@ every product and sum separately, so hit distances differ by a few ulp on
 some rays; the hit triangle, the occlusion and the hit/miss split agree
 exactly."""
 
+import os
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -194,17 +197,91 @@ def test_scene_rt_from_jax_carries_bvh16_and_pool():
                                    getattr(conv.lights, k).numpy(), rtol=1e-6, err_msg=k)
 
 
+@pytest.mark.parametrize("R", [1, 4093, 16_200, 65_536, 100_003, 323_584, 518_400])
+def test_k3_launch_grid(R):
+    """Persistent CTAs: never more than the card keeps resident, and no
+    more than give each ray a half-warp."""
+    per_cta = tb16.RAYS_A_CTA
+    for resident in (264, 1056, 1):
+        grid = tb16.launch_grid(R, resident)
+        assert 1 <= grid <= resident
+        assert grid * per_cta >= min(R, resident * per_cta)   # every ray or CTA slot busy
+        assert (grid - 1) * per_cta < R                        # no CTA without a ray
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_bench_k3_baseline_walks_another_checkout(any_hit):
+    """bench_k3 --baseline imports another checkout's walk module (here this
+    checkout's, as a second copy) and leaves this process's modules as they
+    were; the copy walks CPU rays as the plain walk does."""
+    import hobbyrenderer_tpu_torch
+    from hobbyrenderer_tpu_torch import bench_k3, kernels
+    root = os.path.dirname(os.path.dirname(os.path.abspath(hobbyrenderer_tpu_torch.__file__)))
+    base = bench_k3.load_baseline(root)
+    assert base is not tb16 and base.kernels is not kernels
+    assert sys.modules["hobbyrenderer_tpu_torch.ops.bvh16"] is tb16
+    assert sys.modules["hobbyrenderer_tpu_torch.kernels"] is kernels
+    _, _, tbv, o, d, tmax = _setup()
+    o, d, tmax = (torch.as_tensor(a[:512]) for a in (o, d, tmax))
+    got = base.bvh16_walk(tbv.table, o, d, tmax, any_hit, 64)
+    ref = tb16.bvh16_walk_reference(tbv.table, o, d, tmax, any_hit, 64)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    with pytest.raises(RuntimeError, match="no hobbyrenderer_tpu_torch"):
+        bench_k3.load_baseline(os.path.join(root, "tests"))
+    assert sys.modules["hobbyrenderer_tpu_torch.ops.bvh16"] is tb16
+
+
+def test_bench_k3_scene_rays_and_bound():
+    """bench_k3's synthetic walk: unit directions from inside the scene box,
+    the second half aimed at scene points with t_max short of them, every
+    third ray masked; its bound is the larger of its bytes and operations,
+    counted from the plain walk's rows (384 B an interior row, 480 B a leaf
+    row) and steps."""
+    from hobbyrenderer_tpu_torch import bench_k3
+    tbv = _setup()[2]
+    n = 1001
+    o, d, tm = bench_k3.scene_rays(tbv.root_box, n, device="cpu")
+    assert o.shape == d.shape == (n, 3) and tm.shape == (n,)
+    assert torch.allclose(d.norm(dim=1), torch.ones(n), atol=1e-5)
+    assert ((o >= tbv.root_box[:3]) & (o <= tbv.root_box[3:])).all()
+    masked = torch.arange(n) % 3 == 0
+    assert (tm[masked] == np.float32(1e-4)).all() and (tm[~masked] > 1e-4).all()
+    far = ~masked & (torch.arange(n) < n // 2)
+    assert (tm[far] == np.float32(3.0e38)).all() and (tm[n // 2:] < 1e30).all()
+    t, tri, steps, rows = tb16.bvh16_walk_reference(tbv.table, o, d, tm, True, 432, 1e-4,
+                                                    return_visited=True)
+    assert not (tri[masked] >= 0).any() and (steps >= 1).all()
+    ms, by = bench_k3.walk_bound(tbv.table, n, rows, steps.sum())
+    I = tbv.n_interior
+    assert rows[:I].any() and rows[I:].any()
+    tb = ((int(rows[:I].sum()) * 384 + int(rows[I:].sum()) * 480 + n * 40)
+          / bench_k3.HBM_BYTES_PER_S * 1e3)
+    tf = int(steps.sum()) * 432 / bench_k3.FP32_FLOP_PER_S * 1e3
+    assert ms == pytest.approx(max(tb, tf)) and by == ("bytes" if tb >= tf else "operations")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 def test_cuda_k3_matches_plain(cuda_device, any_hit):
+    """K3 against its plain walk, capped and uncapped, with masked lanes
+    (t_max 1e-4) and a ray count no CTA divides; a second launch gives the
+    same bits (rays come from an atomic queue the kernel leaves at zero)."""
     _, _, tbv, o, d, tmax = _setup()
+    n = R - 3
+    tmax = tmax.copy()
+    tmax[::5] = 1e-4
     table = tbv.table.to(cuda_device)
-    o, d, tmax = (torch.as_tensor(a).to(cuda_device) for a in (o, d, tmax))
-    for steps in (8, tb16.UNCAPPED_STEPS):
+    o, d, tmax = (torch.as_tensor(a[:n]).to(cuda_device) for a in (o, d, tmax))
+    for steps in (8, 24, 64, tb16.UNCAPPED_STEPS):
         n0 = tb16.launches
         got = tb16.bvh16_walk(table, o, d, tmax, any_hit, steps)
+        again = tb16.bvh16_walk(table, o, d, tmax, any_hit, steps)
         torch.cuda.synchronize()
-        assert tb16.launches == n0 + 1
+        assert tb16.launches == n0 + 2
         ref = tb16.bvh16_walk_reference(table, o, d, tmax, any_hit, steps)
-        for a, b in zip(got, ref):
-            assert torch.equal(a, b)
+        for a, b, c in zip(got, ref, again):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        assert not (got[1][::5] >= 0).any()
+        queue = tb16._queue(o.device, torch.cuda.current_stream(o.device).cuda_stream)
+        assert queue.tolist() == [0, 0]
