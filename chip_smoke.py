@@ -39,10 +39,14 @@ microbenchmarks (csrc/wkernels.cu). Each one's bound
 once; of the walks' node tables, K3, K4 and K6, only the rows this run's
 rays read, for K3 the 384 B of an interior row or 480 B of a leaf row that
 a step reads) over 3.35 TB/s and its fp32 operations on this run's data over
-67 TFLOP/s (H100 SXM data sheet). K2, K3, K5, K6 and K7-K9 must equal
-their plain versions bit for bit, in every output; K3, which hands rays
+67 TFLOP/s (H100 SXM data sheet); for K1 and K5 the bytes and operations
+their work needs (bench_raster.raster_bound). K2, K3, K5, K6 and K7-K9
+must equal their plain versions bit for bit, in every output, and K1 in
+depth and visid (its attribute planes within 1e-4); K3, which hands rays
 out through an atomic queue, is launched three times on each walk of
-phases 7 and 18 and must give the same bits each time.
+phases 7 and 18, and K1 and K5, which hand out work units through one, on
+every captured call of phases 2 and 10, and must give the same bits each
+time.
 
 Output, in order: the card's name and power limit, versions, build time,
 one line per phase, the kernels JSON line, and last
@@ -98,13 +102,14 @@ def nbytes(*ts):
 
 
 def capture_first_frame(Renderer, Config, rk, beamops):
-    """Render the first 1080p stress frame, capturing the inputs of the
-    first raster-kernel call (the Raster pass) and of the sun-shadow call."""
-    seen = {}
+    """Render the first 1080p stress frame, capturing the inputs of every
+    raster-kernel call (Raster, RasterPhase2, MaskedLayer, Transparent's
+    layers) and of the sun-shadow call."""
+    seen = {"k1": []}
     k1_orig, k4_orig = rk.raster_resolve_tiles, beamops.beam_any_hit_tiles
 
     def k1_spy(records, work_tile, work_slot, **kw):
-        seen.setdefault("k1", (records, work_tile, work_slot, kw))
+        seen["k1"].append((records, work_tile, work_slot, kw))
         return k1_orig(records, work_tile, work_slot, **kw)
 
     def k4_spy(btable, rays):
@@ -121,7 +126,7 @@ def capture_first_frame(Renderer, Config, rk, beamops):
         r.shutdown()
     finally:
         rk.raster_resolve_tiles, beamops.beam_any_hit_tiles = k1_orig, k4_orig
-    assert "k1" in seen and "k4" in seen, "first frame did not reach both kernels"
+    assert seen["k1"] and "k4" in seen, "first frame did not reach both kernels"
     return seen
 
 
@@ -193,12 +198,30 @@ def k3_check(walk, reps=5):
                      f"({resident} resident)")
 
 
+def raster_check(bench_raster, k1, records, work_tile, work_slot, kw, depth_only=True):
+    """A tile-raster call, K1 or K5 (``depth_only``), held against its plain
+    version by bench_raster.held_call (three launches, the plan, the work
+    and the bound), with the kernel's ms beside it."""
+    x, line, _ = bench_raster.held_call(k1, records, work_tile, work_slot, kw, depth_only)
+    from hobbyrenderer_tpu_torch.ops import raster_kernel as rk
+    x["ms"] = cuda_ms(bench_raster.call_fn(rk, k1, records, work_tile, work_slot, kw, depth_only))
+    x["line"] = f"{line}; kernel {x['ms']:.4f} ms"
+    return x
+
+
+def raster_summary(x):
+    """A raster_check result's numbers for the kernels line."""
+    return {k: x[k] for k in ("items", "empty_tiles", "busiest_tile", "units", "split_tiles",
+                              "strip_rows", "strip_rows_all", "attr_mismatches", "ms",
+                              "plain_ms", "bound_ms", "bound_by")}
+
+
 def rel_err(got, ref):
     """Largest relative difference of two all-positive tensors."""
     return float(((got - ref).abs() / ref.abs()).max())
 
 
-PTXAS_KERNELS = ("raster_resolve_kernel", "raster_tiles_kernel", "beam_any_hit_kernel",
+PTXAS_KERNELS = ("raster_units_kernel", "beam_any_hit_kernel",
                  "restir_candidates_kernel", "bvh16_walk_kernel", "closest_blocks_kernel",
                  "leaf_gather_kernel", "int_fetch_kernel")
 CHECKSUM_RTOL = 1e-5     # sums in another order; a skipped row or step moves it >= 1/64
@@ -724,6 +747,7 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from hobbyrenderer_tpu_torch import bench_k3
+    from hobbyrenderer_tpu_torch import bench_raster
     from hobbyrenderer_tpu_torch import bench_wkernels as bw
     from hobbyrenderer_tpu_torch import kernels
     from hobbyrenderer_tpu_torch.config import Config
@@ -783,31 +807,24 @@ def main():
     log(f"captured first 1080p stress frame in {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 2: K1 against its plain version ------------------------------
-    records, work_tile, work_slot, kw = seen["k1"]
-    d, v, a = rk.raster_resolve_tiles(records, work_tile, work_slot, **kw)
-    rd, rv, ra = rk.raster_resolve_tiles_reference(records, work_tile, work_slot, **kw)
-    torch.cuda.synchronize()
-    n_pix = v.numel()
-    depth_err = float((d - rd).abs().max())
-    vis_mis = int((v != rv).sum())
-    agree = (v == rv)[:, None, :].expand_as(a)
-    attr_err = float((a - ra).abs()[agree].max())
-    k1_ms = cuda_ms(lambda: rk.raster_resolve_tiles(records, work_tile, work_slot, **kw))
-    k1_plain_ms = cuda_ms(lambda: rk.raster_resolve_tiles_reference(
-        records, work_tile, work_slot, **kw))
-    log(f"phase2 K1 tiles={kw['tiles']} items={int((work_slot >= 0).sum())} "
-        f"records={tuple(records.shape)}: depth max|d|={depth_err:.3g} "
-        f"visid mismatch={vis_mis}/{n_pix} attrs max|d|={attr_err:.3g} "
-        f"drawn={int((v >= 0).sum())} kernel {k1_ms:.3f} ms plain {k1_plain_ms:.3f} ms")
-    assert depth_err <= 1e-5, depth_err
-    assert vis_mis < 1e-3 * n_pix, vis_mis
-    assert attr_err <= 1e-4, attr_err
-    assert int((v >= 0).sum()) > n_pix // 2, "first frame drew too little"
-    # loop 1: 3 planes x (2 mul + 2 add) + l1+l2 per (pixel, triangle) of each
-    # worklist item; loop 2: 16 planes x 4 + 1 div + 11 mul per drawn pixel
-    n_items = int((work_slot >= 0).sum())
-    k1_bound = bound(nbytes(records, work_tile, work_slot, d, v, a),
-                     n_items * 1024 * 32 * 13 + int((v >= 0).sum()) * 76)
+    # every K1 call of the first frame: depth and visid equal to the plain
+    # version, three launches equal; the Raster call's time is K1's
+    k1_rows = []
+    for i, (records, work_tile, work_slot, kw) in enumerate(seen["k1"]):
+        x = raster_check(bench_raster, True, records, work_tile, work_slot, kw)
+        k1_rows.append(x)
+        log(f"phase2 K1 call {i} tiles={kw['tiles']} records={tuple(records.shape)}: "
+            f"{x['line']}")
+        assert x["exact"], f"K1 call {i}: depth or visid differs from its plain version"
+        assert x["repeat_equal"], f"K1 call {i}: three launches gave different outputs"
+        assert x["plan_equal"], f"K1 call {i}: the kernels' plan differs from split_units"
+        assert x["attr_max_err"] <= 1e-4, x["attr_max_err"]
+    k1_first = k1_rows[0]
+    n_pix = k1_first["pixels"]
+    assert k1_first["drawn"] > n_pix // 2, "first frame drew too little"
+    attr_err = max(x["attr_max_err"] for x in k1_rows)
+    k1_ms, k1_plain_ms = k1_first["ms"], k1_first["plain_ms"]
+    k1_bound = (k1_first["bound_ms"], k1_first["bound_by"])
 
     # ---- phase 3: K4 against its plain version (all tiles) -----------------
     btable, rays = seen["k4"]
@@ -1071,32 +1088,21 @@ def main():
         rk.raster_tiles = k5_orig
     assert "k5" in cap5, "the first NormalBasic frame did not reach K5"
     records5, wt5, ws5, kw5 = cap5["k5"]
-    assert kw5["depth_only"], kw5
-    tiles5, tx5 = kw5["tiles"], kw5["tx"]
-    n_items5 = int((wt5 < tiles5).sum())
+    assert kw5.pop("depth_only"), "the atlas call is depth only"
+    tiles5 = kw5["tiles"]
     log(f"captured first 1080p stress NormalBasic frame in {time.perf_counter() - t0:.1f} s")
     k5_runs = {}
     for depth_only in (True, False):
-        def k5_call(fn=rk.raster_tiles, depth_only=depth_only):
-            return fn(records5, wt5, ws5, tiles=tiles5, tx=tx5, depth_only=depth_only)
-        d5, v5 = k5_call()
-        rd5, rv5 = k5_call(rk.raster_tiles_reference)
-        torch.cuda.synchronize()
-        d_mis, v_mis = int((d5 != rd5).sum()), int((v5 != rv5).sum())
-        ms = cuda_ms(k5_call)
-        pms = cuda_ms(lambda: k5_call(rk.raster_tiles_reference), reps=3)
-        # 13 fp32 ops per (item, pixel, row): 3 planes x (2 mul + 2 add), l1 + l2
-        bnd = bound(nbytes(records5, wt5, ws5, d5, v5), n_items5 * 1024 * 32 * 13)
-        k5_runs[depth_only] = dict(ms=ms, plain_ms=pms, bound=bnd,
-                                   err=float((d5 - rd5).abs().max()))
-        log(f"phase10 K5 depth_only={depth_only} tiles={tiles5} items={n_items5} "
-            f"records={tuple(records5.shape)}: depth mismatch {d_mis}, visid mismatch {v_mis}, "
-            f"covered texels {float((rd5 > 0).float().mean()):.3f}, kernel {ms:.3f} ms, plain "
-            f"{pms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
-        assert d_mis == 0 and v_mis == 0, "K5 is not bit-exact with its plain version"
-        assert depth_only or int((v5 >= 0).sum()) > 0
+        x = raster_check(bench_raster, False, records5, wt5, ws5, kw5, depth_only)
+        k5_runs[depth_only] = x
+        log(f"phase10 K5 depth_only={depth_only} tiles={tiles5} records={tuple(records5.shape)}: "
+            f"{x['line']}, covered texels {x['drawn'] / x['pixels']:.3f}")
+        assert x["exact"], "K5 is not bit-exact with its plain version"
+        assert x["repeat_equal"], "three K5 launches gave different outputs"
+        assert x["plan_equal"], "K5's plan differs from split_units"
+        assert depth_only or x["drawn"] > 0
     k5_main = k5_runs[True]
-    del records5, wt5, ws5, d5, v5, rd5, rv5
+    del records5, wt5, ws5
 
     # ---- phase 11: NormalBasic frames, CUDA (kernels) against CPU (plain) --
     for mode, need in (("none", 0.99), ("ssgi", 0.97), ("ddgi", 0.97)):
@@ -1433,8 +1439,8 @@ def main():
 
     kernels_line = {"kernels": [
         entry("raster_resolve_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
-              "hobbyrenderer_tpu/ops/raster_pallas.py:212", "K1", max(depth_err, attr_err),
-              k1_ms, k1_plain_ms, k1_bound),
+              "hobbyrenderer_tpu/ops/raster_pallas.py:212", "K1", attr_err, k1_ms, k1_plain_ms,
+              k1_bound, unit_items=rk.UNIT_ITEMS, calls=[raster_summary(x) for x in k1_rows]),
         entry("restir_candidates", "hobbyrenderer_tpu_torch/csrc/restir_candidates.cu",
               "hobbyrenderer_tpu/ops/restir_pallas.py:65", "K2", k2_err, k2_ms, k2_plain_ms,
               k2_bound),
@@ -1447,9 +1453,10 @@ def main():
         entry("beam_any_hit_tiles", "hobbyrenderer_tpu_torch/csrc/beam_any_hit.cu",
               "hobbyrenderer_tpu/ops/beam.py:68", "K4", k4_err, k4_ms, k4_plain_ms, k4_bound),
         entry("raster_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
-              "hobbyrenderer_tpu/ops/raster_pallas.py:148", "K5", k5_main["err"],
-              k5_main["ms"], k5_main["plain_ms"], k5_main["bound"], main=launches_nb,
-              depth_visid={k: k5_runs[False][k] for k in ("ms", "plain_ms")}),
+              "hobbyrenderer_tpu/ops/raster_pallas.py:148", "K5", k5_main["attr_max_err"],
+              k5_main["ms"], k5_main["plain_ms"], (k5_main["bound_ms"], k5_main["bound_by"]),
+              main=launches_nb, unit_items=rk.UNIT_ITEMS, work=raster_summary(k5_main),
+              depth_visid=raster_summary(k5_runs[False])),
         entry("closest_hit_blocks", "hobbyrenderer_tpu_torch/csrc/closest_blocks.cu",
               "hobbyrenderer_tpu/ops/trace.py:64", "K6", k6_main["err"], k6_main["ms"],
               k6_main["plain_ms"], k6_main["bound"], main=launches_k6,

@@ -186,18 +186,18 @@ def walk_bound(table, R, visited, steps_sum):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def load_baseline(root):
-    """Import the checkout at root's walk module (its ops/bvh16.py, bound to
-    its own kernels.py, which builds its own csrc/ into its own build/) and
-    leave this process's modules as they were: the module returned walks
-    with that version's wrapper and C interface."""
+def load_baseline(root, module="ops.bvh16"):
+    """Import the checkout at root's kernel module (by default its walk,
+    ops/bvh16.py, bound to its own kernels.py, which builds its own csrc/
+    into its own build/) and leave this process's modules as they were: the
+    module returned runs that version's wrapper and C interface."""
     pkg = "hobbyrenderer_tpu_torch"
     root = os.path.abspath(root)
     ours = lambda: [k for k in sys.modules if k == pkg or k.startswith(pkg + ".")]
     saved = {k: sys.modules.pop(k) for k in ours()}
     sys.path.insert(0, root)
     try:
-        mod = importlib.import_module(pkg + ".ops.bvh16")
+        mod = importlib.import_module(f"{pkg}.{module}")
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
             raise RuntimeError(f"{root} holds no {pkg} package")
     finally:

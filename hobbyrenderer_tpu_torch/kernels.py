@@ -40,11 +40,16 @@ build_seconds = None     # wall time of the build in this process (None = cached
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # records, tile_start, work_slot, depth, visid, attrs, T, tx, stream
-    "hr_raster_resolve_tiles": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP),
-    # records, tile_start, work_slot, depth, visid, T, tx, lanes, depth_only,
-    # stream
-    "hr_raster_tiles": (_VP,) * 5 + (_I,) * 4 + (_VP,),
+    # records, work_tile, work_slot, wcap, tile_start, units, n_units, depth,
+    # visid, attrs, keys, done, queue, T, tx, grid, stream
+    "hr_raster_resolve_tiles": (_VP,) * 3 + (_I,) + (_VP,) * 9 + (_I,) * 3 + (_VP,),
+    # records, work_tile, work_slot, wcap, tile_start, units, n_units, depth,
+    # visid, keys, done, queue, T, tx, lanes, depth_only, grid, stream
+    "hr_raster_tiles": (_VP,) * 3 + (_I,) + (_VP,) * 8 + (_I,) * 5 + (_VP,),
+    # work_tile, wcap, T, tile_start, units, n_units, stream
+    "hr_raster_plan": (_VP,) + (_I,) * 2 + (_VP,) * 4,
+    # n_out
+    "hr_raster_ctas_per_sm": (_VP,),
     # rays, table, occ, ovf, T, N, stream
     "hr_beam_any_hit_tiles": (_VP, _VP, _VP, _VP, _I, _I, _VP),
     # flat3, tsel, planes, cam, y, u, v, w_sum, row, Hp, Wp, T, N, frame, y0,

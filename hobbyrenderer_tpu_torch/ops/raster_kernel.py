@@ -4,12 +4,18 @@ plain PyTorch versions.
 Counterpart of hobbyrenderer_tpu/ops/raster_pallas.py: K1
 (raster_resolve_tiles, raster + fused attribute resolve) and K5
 (raster_tiles, depth and winner id only; the shadow atlas runs it depth
-only). Both kernels are in csrc/raster_resolve.cu and share loop 1.
-``raster_resolve_tiles`` and ``raster_tiles`` launch their kernel for CUDA
-tensors and run ``raster_resolve_tiles_reference`` /
+only). Both are one kernel template in csrc/raster_resolve.cu: persistent
+CTAs take work units from a queue, a unit being at most ``UNIT_ITEMS`` of a
+tile's worklist items (``split_units``, planned by the kernels' first
+launch); each warp evaluates only the triangle rows that can reach its
+pixel rows (``_rows_outside_strips``), and the units of a split tile merge
+order-free. ``raster_resolve_tiles`` and ``raster_tiles`` launch it for
+CUDA tensors and run ``raster_resolve_tiles_reference`` /
 ``raster_tiles_reference`` for CPU tensors; nothing else chooses."""
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -26,6 +32,7 @@ REC_LANES = 128
 REC_LANES_DEPTH = 16
 ATTR_ROWS = 16
 REF_ITEM_BATCH = 256    # worklist items per step of the plain versions
+UNIT_ITEMS = 4          # most worklist items a work unit: raster_resolve.cu's UNIT (PERF.md)
 
 launches = 0        # K1 launches (CPU reference calls are not counted)
 tiles_launches = 0  # K5 launches
@@ -83,6 +90,113 @@ def _tile_start(work_tile, tiles: int):
                                 device=work_tile.device)).to(torch.int32)
 
 
+def split_units(tile_start, unit_items: int):
+    """The kernels' work units: each non-empty tile's worklist span
+    [tile_start[t], tile_start[t+1]) cut into units of at most
+    ``unit_items`` items. Returns (units, 4) int32 rows (tile, first item,
+    items, units of the tile): the units of split tiles first, then the
+    tiles of one unit, each group in tile order, the queue order of the
+    kernels. The plain version of the plan the kernels' first launch makes
+    (``plan_units``); empty tiles have no unit (the kernels clear them)."""
+    dev = tile_start.device
+    n = (tile_start[1:] - tile_start[:-1]).to(torch.int64)
+    units = (n + unit_items - 1) // unit_items
+    t = torch.repeat_interleave(torch.arange(n.shape[0], device=dev), units)
+    k = torch.arange(t.shape[0], device=dev) - (torch.cumsum(units, 0) - units)[t]
+    j0 = tile_start[t].to(torch.int64) + k * unit_items
+    items = torch.clamp(n[t] - k * unit_items, max=unit_items)
+    rows = torch.stack([t, j0, items, units[t]], -1).to(torch.int32)
+    return rows[torch.argsort((units[t] == 1).to(torch.int8), stable=True)]
+
+
+def plan_units(work_tile, *, tiles: int):
+    """(tile_start (tiles + 1,) int32, units (n, 4) int32): the plan of a
+    call, by the kernels' plan launch for CUDA tensors and by
+    ``_tile_start`` and ``split_units`` at ``UNIT_ITEMS`` for CPU tensors."""
+    if work_tile.device.type == "cpu":
+        tile_start = _tile_start(work_tile, tiles)
+        return tile_start, split_units(tile_start, UNIT_ITEMS)
+    kernels.require(work_tile, "work_tile", torch.int32)
+    lib = kernels.library()
+    dev = work_tile.device
+    tile_start = torch.empty((tiles + 1,), dtype=torch.int32, device=dev)
+    units = torch.empty((_max_units(work_tile.shape[0], tiles, UNIT_ITEMS), 4),
+                        dtype=torch.int32, device=dev)
+    count = torch.empty((1,), dtype=torch.int32, device=dev)
+    kernels.check(lib.hr_raster_plan(work_tile.data_ptr(), work_tile.shape[0], tiles,
+                                     tile_start.data_ptr(), units.data_ptr(),
+                                     count.data_ptr(), kernels.stream_handle(dev)),
+                  "hr_raster_plan")
+    return tile_start, units[:int(count)]
+
+
+def _max_units(n_work: int, tiles: int, unit_items: int) -> int:
+    """The most units n_work items over ``tiles`` tiles can make."""
+    return max(1, min(n_work, -(-n_work // unit_items) + tiles))
+
+
+_resident = {}    # device index -> resident CTAs on the card
+_scratch = {}     # (device index, stream) -> _Scratch
+
+
+class _Scratch:
+    """The launches' device scratch on one stream: the plan (tile starts,
+    units, count; rewritten by every launch) and the queue, the tiles' unit
+    counters and the split tiles' merge keys, zeroed once and left at zero
+    by every launch. Launches on one stream run one after another."""
+
+    def __init__(self, device, tiles: int, max_units: int):
+        self.tiles, self.max_units = tiles, max_units
+        i32 = dict(dtype=torch.int32, device=device)
+        self.tile_start = torch.empty((tiles + 1,), **i32)
+        self.units = torch.empty((max_units, 4), **i32)
+        self.count = torch.empty((1,), **i32)
+        self.queue = torch.zeros((2,), **i32)
+        self.done = torch.zeros((tiles,), **i32)
+        self.keys = torch.zeros((tiles * PIX,), dtype=torch.int64, device=device)
+
+
+def _scratch_for(device, stream, tiles: int, max_units: int) -> _Scratch:
+    key = (device.index, stream)
+    s = _scratch.get(key)
+    if s is None or s.tiles < tiles or s.max_units < max_units:
+        s = _Scratch(device, max(tiles, s.tiles if s else 0),
+                     max(max_units, s.max_units if s else 0))
+        _scratch[key] = s
+    return s
+
+
+def _resident_ctas(lib, device) -> int:
+    if device.index not in _resident:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            kernels.check(lib.hr_raster_ctas_per_sm(ctypes.addressof(out)),
+                          "hr_raster_ctas_per_sm")
+        if out.value < 1:
+            raise RuntimeError("the tile raster does not fit an SM")
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        _resident[device.index] = n_sm * out.value
+    return _resident[device.index]
+
+
+def _launch(fn, records, work_tile, work_slot, tiles, outs, extra):
+    """The kernels' common launch (plan, then raster) on the scratch of the
+    current stream, in as many CTAs as the card keeps resident."""
+    lib = kernels.library()
+    dev = records.device
+    if records.data_ptr() % 16:
+        raise ValueError("records must be 16-byte aligned")
+    stream = kernels.stream_handle(dev)
+    wcap = work_tile.shape[0]
+    s = _scratch_for(dev, stream, tiles, _max_units(wcap, tiles, UNIT_ITEMS))
+    err = getattr(lib, fn)(
+        records.data_ptr(), work_tile.data_ptr(), work_slot.data_ptr(), wcap,
+        s.tile_start.data_ptr(), s.units.data_ptr(), s.count.data_ptr(),
+        *(t.data_ptr() for t in outs), s.keys.data_ptr(), s.done.data_ptr(), s.queue.data_ptr(),
+        tiles, *extra, _resident_ctas(lib, dev), stream)
+    kernels.check(err, fn)
+
+
 def raster_resolve_tiles(records, work_tile, work_slot, *, tiles: int, tx: int):
     """Fused raster + attribute resolve over a tile-sorted worklist.
 
@@ -104,17 +218,12 @@ def _raster_resolve_tiles_cuda(records, work_tile, work_slot, *, tiles, tx):
     kernels.require(records, "records", torch.float32, (S, TRI_CHUNK, REC_LANES))
     kernels.require(work_tile, "work_tile", torch.int32)
     kernels.require(work_slot, "work_slot", torch.int32, work_tile.shape)
-    lib = kernels.library()
     dev = records.device
-    tile_start = _tile_start(work_tile, tiles)
     depth = torch.empty((tiles, PIX), dtype=torch.float32, device=dev)
     visid = torch.empty((tiles, PIX), dtype=torch.int32, device=dev)
     attrs = torch.empty((tiles, ATTR_ROWS, PIX), dtype=torch.float32, device=dev)
-    err = lib.hr_raster_resolve_tiles(
-        records.data_ptr(), tile_start.data_ptr(), work_slot.data_ptr(),
-        depth.data_ptr(), visid.data_ptr(), attrs.data_ptr(), tiles, tx,
-        kernels.stream_handle(dev))
-    kernels.check(err, "hr_raster_resolve_tiles")
+    _launch("hr_raster_resolve_tiles", records, work_tile, work_slot, tiles,
+            (depth, visid, attrs), (tx,))
     launches += 1
     return depth, visid, attrs
 
@@ -173,21 +282,16 @@ def raster_tiles(records, work_tile, work_slot, *, tiles: int, tx: int,
 def _raster_tiles_cuda(records, work_tile, work_slot, *, tiles, tx, depth_only):
     global tiles_launches
     S, _, lanes = records.shape
-    if lanes < 9:
-        raise ValueError(f"records need >= 9 lanes, got {lanes}")
+    if lanes < 12 or lanes % 4:
+        raise ValueError(f"the kernel takes records of 12, 16, 20, ... lanes, got {lanes}")
     kernels.require(records, "records", torch.float32, (S, TRI_CHUNK, lanes))
     kernels.require(work_tile, "work_tile", torch.int32)
     kernels.require(work_slot, "work_slot", torch.int32, work_tile.shape)
-    lib = kernels.library()
     dev = records.device
-    tile_start = _tile_start(work_tile, tiles)
     depth = torch.empty((tiles, PIX), dtype=torch.float32, device=dev)
     visid = torch.empty((tiles, PIX), dtype=torch.int32, device=dev)
-    err = lib.hr_raster_tiles(records.data_ptr(), tile_start.data_ptr(),
-                              work_slot.data_ptr(), depth.data_ptr(), visid.data_ptr(),
-                              tiles, tx, lanes, int(bool(depth_only)),
-                              kernels.stream_handle(dev))
-    kernels.check(err, "hr_raster_tiles")
+    _launch("hr_raster_tiles", records, work_tile, work_slot, tiles,
+            (depth, visid), (tx, lanes, int(bool(depth_only))))
     tiles_launches += 1
     return depth, visid
 
@@ -217,6 +321,33 @@ def _rows_outside(A, oxf, oyf):
     out = ((hi1 < -1e-5 * m1) | (hi2 < -1e-5 * m2)
            | (lo_s > 1.0 + 1e-5 * (m1 + m2) + 1e-6))
     return out[..., 0]
+
+
+def _rows_outside_strips(A, oxf, oyf):
+    """(m, 32 rows, 32 strips): row r of item i cannot cover any pixel of
+    pixel row s of its tile (the 32x1 strip x in [oxf, oxf + 31], y = oyf +
+    s): at an end of the strip l1 >= 0, l2 >= 0 or l1 + l2 <= 1 fails in
+    float64 by more than 1e-5 of the plane's magnitude, the margin of
+    ``_rows_outside`` applied to a strip. The kernels' warp test, step for
+    step, the parts that do not depend on y first; tile coordinates are
+    positive, so x = oxf + 31 is the largest |x|. A (m, 32, >=6) rows;
+    oxf, oyf (m, 1, 1)."""
+    A = A.to(torch.float64)
+    x0 = oxf.to(torch.float64)
+    x1 = x0 + (TILE - 1)
+    y = oyf.to(torch.float64) + torch.arange(TILE, dtype=torch.float64, device=A.device)
+    a0, a1, a2 = A[..., 0:1], A[..., 1:2], A[..., 2:3]
+    b0, b1, b2 = A[..., 3:4], A[..., 4:5], A[..., 5:6]
+    s0, s1, s2 = a0 + b0, a1 + b1, a2 + b2
+    hx1 = a2 + torch.maximum(a0 * x0, a0 * x1)
+    mx1 = torch.abs(a0) * x1 + torch.abs(a2)
+    hx2 = b2 + torch.maximum(b0 * x0, b0 * x1)
+    mx2 = torch.abs(b0) * x1 + torch.abs(b2)
+    lxs = s2 + torch.minimum(s0 * x0, s0 * x1)
+    m1 = mx1 + torch.abs(a1) * y
+    m2 = mx2 + torch.abs(b1) * y
+    return ((hx1 + a1 * y < -1e-5 * m1) | (hx2 + b1 * y < -1e-5 * m2)
+            | (lxs + s1 * y > (1.0 + 1e-5 * (m1 + m2)) + 1e-6))
 
 
 def raster_tiles_reference(records, work_tile, work_slot, *, tiles: int, tx: int,

@@ -27,6 +27,7 @@ from hobbyrenderer_tpu_torch.models import scene_rt as tsrt
 from hobbyrenderer_tpu_torch.ops import bvh16 as tb16
 from hobbyrenderer_tpu_torch.ops import trace as ttrace
 from hobbyrenderer_tpu_torch.scene.procedural import make_stress_scene
+from tests.torch_parity import same_mesh_cooker
 
 R = 4096
 _CACHE = {}
@@ -41,6 +42,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_mesh_cooker():
+    same_mesh_cooker()
 
 
 @pytest.fixture

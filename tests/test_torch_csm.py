@@ -30,6 +30,7 @@ from hobbyrenderer_tpu_torch.ops import raster_kernel as trk
 from hobbyrenderer_tpu_torch.ops import sss as tsss
 from hobbyrenderer_tpu_torch.scene.gpu import scene_gpu_from_numpy
 from hobbyrenderer_tpu_torch.utils import math as hm
+from tests.torch_parity import same_mesh_cooker
 
 W, H = 96, 64
 ATLAS_RES = 128
@@ -44,6 +45,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_mesh_cooker():
+    same_mesh_cooker()
 
 
 @pytest.fixture
@@ -231,6 +237,72 @@ def test_shadow_masks_match_jax(which):
     assert np.mean(want < 1.0) > 0.01, "no shadow in view"
     same = np.mean(np.abs(got - want) <= 1e-6)
     assert same >= 0.995, same
+
+
+def _tri_rows(kind, rng, m=48):
+    """m items of 32 triangle rows (m, 32, 9) as ops/raster.py builds them
+    from screen vertices, and their tiles' origins (m, 1, 1) anywhere in a
+    4096 x 4096 atlas. ``kind``: random triangles about the tile; slivers
+    (a vertex within 1e-3 px of the opposite edge); triangles whose edges
+    run through pixel centres (vertices on the centres' grid); and invalid
+    rows (ok flag off, l1c = -1e9)."""
+    ox = rng.integers(0, 128, m) * 32 + 0.5
+    oy = rng.integers(0, 128, m) * 32 + 0.5
+    o = np.stack([ox, oy], -1)[:, None, None, :]
+    size = rng.choice([0.7, 3.0, 12.0, 40.0], (m, 32, 1, 1))
+    v = o + 15.5 + rng.normal(size=(m, 32, 3, 2)) * size
+    if kind == "slivers":
+        t = rng.uniform(-0.2, 1.2, (m, 32, 1))
+        v[..., 2, :] = (v[..., 0, :] * (1 - t) + v[..., 1, :] * t
+                        + rng.uniform(-1e-3, 1e-3, (m, 32, 2)))
+    elif kind == "centre_edges":
+        v = o + rng.integers(-8, 40, (m, 32, 3, 2)).astype(np.float64)
+    tv = torch.as_tensor(v.astype(np.float32))
+    tz = torch.as_tensor(rng.uniform(0.01, 1.0, (m, 32, 3)).astype(np.float32))
+    e1, e2 = tv[..., 1, :] - tv[..., 0, :], tv[..., 2, :] - tv[..., 0, :]
+    area2 = e1[..., 0] * e2[..., 1] - e1[..., 1] * e2[..., 0]
+    nondegen = torch.abs(area2) > 1e-12
+    tok = nondegen & torch.tensor(kind != "invalid")
+    coeff = traster._tri_affine_coeffs(tv, tz, torch.where(nondegen, 1.0 / area2, 0.0), tok)
+    rows = trk._raster_body(coeff)
+    return (rows, torch.as_tensor(ox, dtype=torch.float32)[:, None, None],
+            torch.as_tensor(oy, dtype=torch.float32)[:, None, None])
+
+
+def _strips_inside(rows, oxf, oyf):
+    """(m, 32 rows, 32 strips): some pixel of the strip is inside the row by
+    the kernels' f32 arithmetic (_plane_eval, the same rounding)."""
+    p = torch.arange(trk.PIX)
+    xl, yl = (p % 32).to(torch.float32)[None, :], (p // 32).to(torch.float32)[None, :]
+    l1 = trk._plane_eval(rows, oxf, oyf, xl, yl, 0)
+    l2 = trk._plane_eval(rows, oxf, oyf, xl, yl, 3)
+    inside = (l1 >= 0.0) & (l2 >= 0.0) & (l1 + l2 <= 1.0)
+    return inside.reshape(*inside.shape[:2], 32, 32).any(-1)
+
+
+@pytest.mark.parametrize("kind", ["random", "slivers", "centre_edges", "invalid", "atlas"])
+def test_strip_cull_keeps_every_inside_row(kind):
+    """The strip test (_rows_outside_strips, the kernels' per warp cull)
+    never drops a row that the f32 evaluation finds inside some pixel of
+    the strip: random and adversarial triangles, and the atlas's rows."""
+    if kind == "atlas":
+        k = _pallas_inputs()
+        n = int((k["work_tile"] < k["tiles"]).sum())
+        t = torch.as_tensor(k["work_tile"][:n]).long()
+        rows = torch.as_tensor(k["records"])[torch.as_tensor(k["work_slot"][:n]).long()][..., :9]
+        oxf = ((t % k["tx"]) * 32).to(torch.float32)[:, None, None] + 0.5
+        oyf = ((t // k["tx"]) * 32).to(torch.float32)[:, None, None] + 0.5
+    else:
+        rows, oxf, oyf = _tri_rows(kind, np.random.default_rng(len(kind)))
+    out = trk._rows_outside_strips(rows, oxf, oyf)
+    inside = _strips_inside(rows, oxf, oyf)
+    assert out.shape == inside.shape == (rows.shape[0], 32, 32)
+    assert not bool((out & inside).any()), int((out & inside).sum())
+    if kind == "invalid":
+        assert bool(out.all())
+    else:       # the test culls, and the inside rows are not all of the kept ones
+        assert bool(inside.any()) and 0.2 < float(out.float().mean()) < 1.0
+        assert float(inside.float().mean()) > 0.0
 
 
 @pytest.mark.cuda

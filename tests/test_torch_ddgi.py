@@ -25,6 +25,7 @@ from hobbyrenderer_tpu_torch.models import scene_rt as tsrt
 from hobbyrenderer_tpu_torch.ops import bvh16 as tb16
 from hobbyrenderer_tpu_torch.ops import ddgi as tddgi
 from hobbyrenderer_tpu_torch.scene.gpu import scene_gpu_from_numpy
+from tests.torch_parity import same_mesh_cooker
 
 VOL_FIELDS = ("irradiance", "distance", "alive", "offset", "variability")
 
@@ -38,6 +39,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_mesh_cooker():
+    same_mesh_cooker()
 
 
 _CACHE = {}

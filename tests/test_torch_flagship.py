@@ -23,6 +23,7 @@ from hobbyrenderer_tpu.renderer import Renderer as JaxRenderer
 from hobbyrenderer_tpu_torch.config import Config
 from hobbyrenderer_tpu_torch.ops import restir as trestir
 from hobbyrenderer_tpu_torch.renderer import Renderer as TorchRenderer
+from tests.torch_parity import same_mesh_cooker
 
 W, H = 96, 64
 FRAMES = 3
@@ -42,6 +43,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_mesh_cooker():
+    same_mesh_cooker()
 
 
 def _port_frames(kw):

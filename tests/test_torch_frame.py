@@ -22,6 +22,7 @@ from hobbyrenderer_tpu_torch.config import Config
 from hobbyrenderer_tpu_torch.ops import beam as tbeam
 from hobbyrenderer_tpu_torch.ops import raster_kernel as trk
 from hobbyrenderer_tpu_torch.renderer import Renderer as TorchRenderer
+from tests.torch_parity import same_mesh_cooker
 
 FRAMES = 3
 KEEP = ("raster_depth", "raster_visid", "gbuffer")
@@ -40,6 +41,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_mesh_cooker():
+    same_mesh_cooker()
 
 
 @pytest.fixture

@@ -22,6 +22,7 @@ from hobbyrenderer_tpu_torch.ops import raster_kernel as trk
 from hobbyrenderer_tpu_torch.ops import upsample as tup
 from hobbyrenderer_tpu_torch.renderer import Renderer as TorchRenderer
 from hobbyrenderer_tpu_torch.utils import bluenoise as tbn
+from tests.torch_parity import same_mesh_cooker
 
 W, H = 96, 64
 FRAMES = 2
@@ -40,6 +41,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_mesh_cooker():
+    same_mesh_cooker()
 
 
 def test_blue_noise_copy_matches_jax():

@@ -35,6 +35,7 @@ from hobbyrenderer_tpu_torch.models import pathtracer as tpt
 from hobbyrenderer_tpu_torch.models import scene_rt as tsrt
 from hobbyrenderer_tpu_torch.renderer import device_view_constants
 from hobbyrenderer_tpu_torch.scene.gpu import scene_gpu_from_numpy
+from tests.torch_parity import same_mesh_cooker
 
 SHARE_TOL, REL_L1_TOL = 0.99, 1e-3
 ACCUM = 3
@@ -49,6 +50,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_mesh_cooker():
+    same_mesh_cooker()
 
 
 def carry_scene(scene):

@@ -28,6 +28,7 @@ from hobbyrenderer_tpu_torch.scene.gpu import build_scene_gpu
 from hobbyrenderer_tpu_torch.scene.procedural import (camera_looking_at, plane_geometry,
                                                       sphere_geometry)
 from hobbyrenderer_tpu_torch.scene.scene import LIGHT_DIRECTIONAL, Light, Material, Node, Scene
+from tests.torch_parity import same_mesh_cooker
 
 W, H = 96, 64
 FRAMES = 3
@@ -44,6 +45,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_mesh_cooker():
+    same_mesh_cooker()
 
 
 def _port_frames(kw):

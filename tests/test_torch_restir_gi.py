@@ -32,6 +32,7 @@ from hobbyrenderer_tpu_torch.config import Config
 from hobbyrenderer_tpu_torch.models import scene_rt as tsrt
 from hobbyrenderer_tpu_torch.ops import restir_gi as tgi
 from hobbyrenderer_tpu_torch.renderer import Renderer as TorchRenderer
+from tests.torch_parity import same_mesh_cooker
 
 W, H = 128, 96
 SCALE = 4
@@ -48,6 +49,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_mesh_cooker():
+    same_mesh_cooker()
 
 
 def _setup(tmp_root):

@@ -43,6 +43,7 @@ from hobbyrenderer_tpu_torch.scene.procedural import (camera_looking_at, make_st
                                                       plane_geometry)
 from hobbyrenderer_tpu_torch.scene.scene import LIGHT_POINT, Light, Material, Node, Scene
 from hobbyrenderer_tpu_torch.utils import math as hm
+from tests.torch_parity import same_mesh_cooker
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -54,6 +55,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_mesh_cooker():
+    same_mesh_cooker()
 
 
 @pytest.fixture

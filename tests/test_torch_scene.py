@@ -25,6 +25,7 @@ from hobbyrenderer_tpu_torch.ops import beam as tbeam
 from hobbyrenderer_tpu_torch.ops import bvh as tbvh
 from hobbyrenderer_tpu_torch.scene import gpu as tgpu
 from hobbyrenderer_tpu_torch.scene import procedural as tproc
+from tests.torch_parity import same_mesh_cooker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = {"cube": make_default_cube_scene, "stress:2": lambda: make_stress_scene(grid=2)}
@@ -41,6 +42,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_mesh_cooker():
+    same_mesh_cooker()
 
 
 def _same(a, b, what):

@@ -36,6 +36,7 @@ from hobbyrenderer_tpu_torch.ops import raster as traster
 from hobbyrenderer_tpu_torch.ops import sampling as tsmp
 from hobbyrenderer_tpu_torch.ops import specular as tspec
 from hobbyrenderer_tpu_torch.renderer import Renderer as TorchRenderer
+from tests.torch_parity import same_mesh_cooker
 
 W, H = 128, 96
 FRAMES = (2, 3)
@@ -51,6 +52,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_mesh_cooker():
+    same_mesh_cooker()
 
 
 def _unit(rng, n):

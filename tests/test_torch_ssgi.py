@@ -16,6 +16,7 @@ from hobbyrenderer_tpu_torch.config import Config, RenderSettings
 from hobbyrenderer_tpu_torch.ops import raster as traster
 from hobbyrenderer_tpu_torch.ops import ssgi as tssgi
 from hobbyrenderer_tpu_torch.renderer import Renderer as TorchRenderer
+from tests.torch_parity import same_mesh_cooker
 
 W, H = 96, 64
 FRAMES = 2
@@ -34,6 +35,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _same_mesh_cooker():
+    same_mesh_cooker()
 
 
 _CACHE = {}
