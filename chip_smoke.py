@@ -38,15 +38,22 @@ microbenchmarks (csrc/wkernels.cu). Each one's bound
 (bound_ms) is the larger of its bytes (inputs read once, outputs written
 once; of the walks' node tables, K3, K4 and K6, only the rows this run's
 rays read, for K3 the 384 B of an interior row or 480 B of a leaf row that
-a step reads) over 3.35 TB/s and its fp32 operations on this run's data over
-67 TFLOP/s (H100 SXM data sheet); for K1 and K5 the bytes and operations
-their work needs (bench_raster.raster_bound). K2, K3, K5, K6 and K7-K9
-must equal their plain versions bit for bit, in every output, and K1 in
-depth and visid (its attribute planes within 1e-4); K3, which hands rays
-out through an atomic queue, is launched three times on each walk of
-phases 7 and 18, and K1 and K5, which hand out work units through one, on
-every captured call of phases 2 and 10, and must give the same bits each
-time.
+a step reads, for K4 an interior row's 96 B and a leaf row's 160 B) over
+3.35 TB/s and its fp32 operations on this run's data over 67 TFLOP/s (H100
+SXM data sheet); for K1 and K5 the bytes and operations their work needs
+(bench_raster.raster_bound), for K2 and K4 bench_k2k4.k2_bound and
+k4_bound; K2's entry also carries its issue-rate estimate (its SASS
+instructions, from cuobjdump, over the card's 132 x 4 warp schedulers).
+K2, K3, K5, K6 and K7-K9 must equal their plain versions bit for bit, in
+every output, K1 in depth and visid (its attribute planes within 1e-4),
+and K4 in the occlusion of all but 1e-4 of the active lanes (and equal its
+walk replayed in plain PyTorch on every lane). K3, which hands rays out
+through an atomic queue, is launched three times on each walk of phases 7
+and 18, K4, which hands out tile parts through one, on each of phase 3's
+four calls (the simple frame's SunShadow call and the first flagship
+frame's RTXDI and RTXDIGI calls), K2 on phase 6's call, and K1 and K5,
+which hand out work units through one, on every captured call of phases 2
+and 10: each must give the same bits each time.
 
 Output, in order: the card's name and power limit, versions, build time,
 one line per phase, the kernels JSON line, and last
@@ -746,6 +753,7 @@ def main():
               "an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from hobbyrenderer_tpu_torch import bench_k2k4
     from hobbyrenderer_tpu_torch import bench_k3
     from hobbyrenderer_tpu_torch import bench_raster
     from hobbyrenderer_tpu_torch import bench_wkernels as bw
@@ -781,6 +789,7 @@ def main():
                          timeout=60)
     assert smi.returncode == 0, smi.stderr
     log(smi.stdout.strip().splitlines()[0])
+    clock_mhz = bench_k2k4.card_line()[1]
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -826,34 +835,29 @@ def main():
     k1_ms, k1_plain_ms = k1_first["ms"], k1_first["plain_ms"]
     k1_bound = (k1_first["bound_ms"], k1_first["bound_by"])
 
-    # ---- phase 3: K4 against its plain version (all tiles) -----------------
-    btable, rays = seen["k4"]
-    T = rays.shape[0]
-    occ, ovf = beamops.beam_any_hit_tiles(btable, rays)
-    ref4, _ = beamops.beam_any_hit_tiles_reference(btable, rays)
-    torch.cuda.synchronize()
-    act = rays[:, 7] > 0.5
-    n_act = int(act.sum())
-    k4_mis = int(((occ != ref4) & act).sum())
-    k4_err = float((occ - ref4)[act].abs().max())
-    k4_ms = cuda_ms(lambda: beamops.beam_any_hit_tiles(btable, rays))
-    k4_plain_ms = cuda_ms(lambda: beamops.beam_any_hit_tiles_reference(btable, rays), reps=3)
-    # bytes: the table rows the kernel's walk reads (its walk replayed as a
-    # plain wavefront), the rays and the outputs; operations: at least the
-    # root row's 4 child slab tests (27 fp32 ops each) per ray
-    walk4, rows4 = beamops.beam_walk_rows(btable, rays)
-    walk4_mis = int((walk4 != occ).sum())
-    n_rows4 = int(rows4.sum())
-    k4_bound = bound(n_rows4 * btable.shape[1] * 4 + nbytes(rays, occ, ovf), n_act * 4 * 27)
-    log(f"phase3 K4 rays={tuple(rays.shape)} btable={tuple(btable.shape)}: occlusion "
-        f"mismatch={k4_mis}/{n_act} active, occluded share {float(ref4[act].mean()):.3f}, "
-        f"ovf nonzero={int((ovf != 0).sum())}, walk replay mismatch={walk4_mis}, rows read "
-        f"{n_rows4} of {btable.shape[0]}; kernel {k4_ms:.3f} ms, plain "
-        f"{k4_plain_ms:.3f} ms, bound {k4_bound[0]:.4f} ms ({k4_bound[1]})")
-    assert n_act > 0
-    assert k4_mis <= 1e-4 * n_act, k4_mis
-    assert walk4_mis == 0, walk4_mis
-    assert int((ovf != 0).sum()) == 0
+    # ---- phase 3: K4 against its plain version, every captured call -------
+    # the first simple frame's SunShadow call and the first flagship frame's
+    # RTXDI (two) and RTXDIGI calls: occlusion against the plain version on
+    # the active lanes (the allowance: 1e-4 of them) and against the
+    # kernel's walk replayed in plain PyTorch (every lane), three launches
+    # equal; bound and work from bench_k2k4.held_k4
+    k4_calls = dict(SunShadow=seen["k4"])
+    k4_calls.update(bench_k2k4.capture(Renderer, Config, frames=("flagship",))[0])
+    k4_rows = {}
+    for name, (btable, rays) in k4_calls.items():
+        x, line = bench_k2k4.held_k4(btable, rays)
+        x["ms"] = cuda_ms(lambda: beamops.beam_any_hit_tiles(btable, rays))
+        k4_rows[name] = x
+        log(f"phase3 K4 {name} rays={tuple(rays.shape)} btable={tuple(btable.shape)}: {line}; "
+            f"kernel {x['ms']:.4f} ms")
+        assert x["active"] > 0, name
+        assert x["mismatches"] <= 1e-4 * x["active"], (name, x["mismatches"])
+        assert x["replay_mismatches"] == 0, (name, x["replay_mismatches"])
+        assert x["repeat_equal"], f"three K4 launches on {name} gave different outputs"
+        assert x["ovf_nonzero"] == 0, name
+    k4_main = k4_rows["SunShadow"]
+    k4_err = max(x["max_abs_err"] for x in k4_rows.values())
+    del k4_calls
 
     # ---- phase 4: the port's frame, CUDA (kernels) against CPU (plain) -----
     cfg = Config(scene="stress:4", width=256, height=192,
@@ -943,9 +947,12 @@ def main():
 
     # ---- phase 6: K2 against its plain version ------------------------------
     a, kw = cap["k2"]
-    got = rko.restir_candidates(*a, **kw)
+    got3 = [rko.restir_candidates(*a, **kw) for _ in range(3)]
     ref = rko.restir_candidates_reference(*a, **kw)
     torch.cuda.synchronize()
+    got = got3[0]
+    k2_repeat = all(torch.equal(x, y) for g in got3[1:] for x, y in zip(got, g))
+    del got3
     flat3, tsel, planes = a[0], a[1], a[2]
     y_same = got[0] == ref[0]
     id_share = float(y_same.float().mean())
@@ -955,18 +962,23 @@ def main():
     k2_plain_ms = cuda_ms(lambda: rko.restir_candidates_reference(*a, **kw), reps=3)
     Hp, Wp = planes.shape[1:]
     n_cand = kw["num_candidates"]
-    # per pixel ~40 fp32 ops of set-up, per candidate 189 (light 34 + emissive
-    # 57 + GGX p-hat 92 + RIS 3 + uniforms 3), counted from the kernel source
-    k2_bound = bound(nbytes(flat3, tsel, planes, a[3], *got), Hp * Wp * (40 + 189 * n_cand))
+    k2_bound = bench_k2k4.k2_bound(a, got, n_cand)[:2]
+    # the issue-rate estimate: the kernel's SASS instructions over the
+    # card's 132 x 4 warp schedulers at its maximum SM clock
+    k2_sass = bench_k2k4.sass_counts(kernels.library()._name)
+    k2_issue_ms = bench_k2k4.k2_issue(k2_sass, Hp * Wp, n_cand, clock_mhz)[0]
+    assert k2_issue_ms is not None, f"K2's SASS gave no candidate loop: {k2_sass}"
     drawn = float((ref[0] >= 0).float().mean())
     log(f"phase6 K2 planes={tuple(planes.shape)} tiles={tuple(flat3.shape)} "
         f"candidates={n_cand}: id agreement {id_share:.6f}, w_sum max rel err {w_rel:.3g} "
-        f"where ids agree, max|d| all outputs {k2_err:.3g}, pixels with a winner {drawn:.3f}; "
-        f"kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms "
-        f"({k2_bound[1]})")
+        f"where ids agree, max|d| all outputs {k2_err:.3g}, three launches equal {k2_repeat}, "
+        f"pixels with a winner {drawn:.3f}; SASS {json.dumps(k2_sass)}; kernel {k2_ms:.3f} ms, "
+        f"plain {k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]}), issue-rate "
+        f"estimate {k2_issue_ms:.4f} ms at {clock_mhz} MHz")
     assert id_share >= 0.999, id_share
     assert w_rel <= 1e-5, w_rel
     assert k2_err == 0.0, "K2 is not bit-exact with its plain version"
+    assert k2_repeat, "three K2 launches gave different outputs"
     assert drawn > 0.3, drawn
 
     # ---- phase 7: K3 against its plain version ------------------------------
@@ -1443,7 +1455,8 @@ def main():
               k1_bound, unit_items=rk.UNIT_ITEMS, calls=[raster_summary(x) for x in k1_rows]),
         entry("restir_candidates", "hobbyrenderer_tpu_torch/csrc/restir_candidates.cu",
               "hobbyrenderer_tpu/ops/restir_pallas.py:65", "K2", k2_err, k2_ms, k2_plain_ms,
-              k2_bound),
+              k2_bound, issue_ms=k2_issue_ms, issue_clock_mhz=clock_mhz,
+              sass_per_candidate=k2_sass.get("per_candidate")),
         entry("bvh16_walk", "hobbyrenderer_tpu_torch/csrc/bvh16_walk.cu",
               "hobbyrenderer_tpu/ops/wtrace.py:71", "K3", k3_main["err"], k3_main["ms"],
               k3_main["plain_ms"], k3_main["bound"], rays=k3_main["rays"],
@@ -1451,7 +1464,13 @@ def main():
                      for x in k3_rows + pt["k3_rows"]},
               gsteps_per_s={x["name"]: x["gsteps"] for x in k3_rows + pt["k3_rows"]}),
         entry("beam_any_hit_tiles", "hobbyrenderer_tpu_torch/csrc/beam_any_hit.cu",
-              "hobbyrenderer_tpu/ops/beam.py:68", "K4", k4_err, k4_ms, k4_plain_ms, k4_bound),
+              "hobbyrenderer_tpu/ops/beam.py:68", "K4", k4_err, k4_main["ms"],
+              k4_main["plain_ms"], (k4_main["bound_ms"], k4_main["bound_by"]),
+              calls={k: dict(ms=x["ms"], plain_ms=x["plain_ms"], bound_ms=x["bound_ms"],
+                             bound_by=x["bound_by"], active_lanes=x["active"],
+                             live_lanes=x["live"], max_steps=x["max_steps"],
+                             mismatches=x["mismatches"])
+                     for k, x in k4_rows.items()}),
         entry("raster_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
               "hobbyrenderer_tpu/ops/raster_pallas.py:148", "K5", k5_main["attr_max_err"],
               k5_main["ms"], k5_main["plain_ms"], (k5_main["bound_ms"], k5_main["bound_by"]),

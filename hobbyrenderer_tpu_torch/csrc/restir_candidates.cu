@@ -14,29 +14,32 @@
 // 100 + c) with gy the global row and w_log the logical width, and bits turn
 // into [0, 1) as the top 24 bits times 2^-24 (the TPU kernel's _u01).
 //
-// What bounds it on the H100: memory. Per pixel it reads 12 G-buffer floats
-// and writes 20, ~128 B/px (0.27 GB at 1920x1080, ~0.08 ms at 3.35 TB/s);
-// the ~200 FLOP per candidate (8 candidates) are ~0.05 ms at 67 TFLOP/s fp32.
+// What bounds it on the H100: instruction issue. Its bytes (12 G-buffer
+// floats in, 20 out a pixel, ~0.08 ms at 3.35 TB/s) are far below the
+// ~440 SASS instructions a candidate issues (bench_k2k4.sass_counts): the
+// IEEE divides and square roots (the library is built with -fmad=false and
+// IEEE '/' and sqrtf, so that it stays bit-exact with the plain version)
+// and the products of the light and the GGX terms.
 //
-// Design: one block per 8-row x 128-pixel block (the TPU program's
-// footprint), one thread per pixel. The block copies its 8 scanline tiles
-// (8 x 18 x 128 f32 = 72 KB, above the 48 KB default: the wrapper raises the
-// block's dynamic shared-memory limit) into shared memory once; every
-// candidate then reads its 18 channels from shared memory, conflict-free
-// since neighbouring threads read neighbouring slots. All N candidates run
-// in registers and the reservoir keeps only the winner's slot; the winner's
-// 16-channel row is copied from shared memory once, at the end. The
-// arithmetic is the plain version's, operation for operation, with rsqrt
-// written as 1/sqrt (as the plain version computes it); the library is
-// compiled with -fmad=false, and '/' and sqrtf are IEEE, so the two agree bit
-// for bit.
+// Design: a block of 128 threads takes one scanline segment, a thread a
+// pixel. The block copies its tile (18 x 128 f32) into shared memory and
+// adds 7 channels a slot that depend on the light slot alone (the emissive
+// triangle's normal, its 1/|n| and area, max(range, 1e-4) and the spot
+// denominator), computed once a slot instead of once a (pixel, candidate)
+// and with the same operations in the same order. Every candidate then
+// reads its slot from shared memory, conflict-free since neighbouring
+// threads read neighbouring slots, and evaluates only its slot's kind of
+// light (emissive triangle or analytic) before the GGX p-hat. All N
+// candidates run in registers and the reservoir keeps only the winner's
+// slot; the winner's 16-channel row is copied from shared memory once, at
+// the end. The arithmetic is the plain version's, operation for operation,
+// with rsqrt written as 1/sqrt, so the two agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int ROWS = 8;
 constexpr int SEG = 128;
 constexpr int CH = 18;
 constexpr float MIN_ROUGH = 0.03f;
@@ -70,25 +73,108 @@ __device__ __forceinline__ float shade(float f0c, float dc, float radc, float fr
   return (((1.0f - F) * dc * INV_PI + DV * F) * ndl) * radc;
 }
 
-__global__ void __launch_bounds__(ROWS * SEG)
+constexpr int XCH = 7;                          // per-slot channels after the CH
+constexpr int CHS = CH + XCH;
+
+// What a pixel brings to every candidate (the per-pixel set-up).
+struct Pixel {
+  float px, py, pz, nx, ny, nz, vx, vy, vz, ndv, a2, dr, dg, db, f0r, f0g, f0b, smith_v, valid;
+};
+
+// p-hat of one candidate: the slot's channels ch (stride SEG, with the
+// per-slot terms), only the slot's kind of light, then the GGX BRDF *
+// NdotL; the plain version's operations in its order (it evaluates both
+// kinds and selects, which gives the same bits).
+__device__ __forceinline__ float phat(const float* ch, const Pixel& q, float u_u, float u_v) {
+#define CHN(k) ch[(k) * SEG]
+  const bool is_em = CHN(13) > 0.5f;
+  float Lx, Ly, Lz, rr, rg2, rb;
+  if (is_em) {
+    const bool over = (u_u + u_v) > 1.0f;
+    const float uu = over ? 1.0f - u_u : u_u;
+    const float vv = over ? 1.0f - u_v : u_v;
+    const float plx = CHN(1) + uu * CHN(4) + vv * CHN(7) - q.px;
+    const float ply = CHN(2) + uu * CHN(5) + vv * CHN(8) - q.py;
+    const float plz = CHN(3) + uu * CHN(6) + vv * CHN(9) - q.pz;
+    const float d2e = fmaxf(plx * plx + ply * ply + plz * plz, 1e-8f);
+    const float inv_de = rsq(d2e);
+    Lx = plx * inv_de; Ly = ply * inv_de; Lz = plz * inv_de;
+    const float cos_l = fabsf((CHN(CH) * Lx + CHN(CH + 1) * Ly + CHN(CH + 2) * Lz) * CHN(CH + 3));
+    const float ge = cos_l * CHN(CH + 4) / d2e;
+    rr = CHN(10) * ge; rg2 = CHN(11) * ge; rb = CHN(12) * ge;
+  } else {
+    const bool is_dir = CHN(0) < 0.5f;
+    const bool is_spot = CHN(0) > 1.5f;
+    const float tlx = is_dir ? -CHN(4) : CHN(1) - q.px;
+    const float tly = is_dir ? -CHN(5) : CHN(2) - q.py;
+    const float tlz = is_dir ? -CHN(6) : CHN(3) - q.pz;
+    const float d2a = fmaxf(tlx * tlx + tly * tly + tlz * tlz, 1e-16f);
+    const float inv_da = rsq(d2a);
+    Lx = tlx * inv_da; Ly = tly * inv_da; Lz = tlz * inv_da;
+    const float dist_a = d2a * inv_da;
+    const float xr = clip(dist_a / CHN(CH + 5), 0.0f, 1.0f);
+    float fall = 1.0f - xr * xr * xr * xr;
+    fall = clip(fall * fall, 0.0f, 1.0f);
+    float atten = is_dir ? 1.0f : fall / fmaxf(d2a, 1e-4f);
+    const float cd = -(Lx * CHN(4) + Ly * CHN(5) + Lz * CHN(6));
+    const float spot = clip((cd - CHN(12)) / CHN(CH + 6), 0.0f, 1.0f);
+    if (is_spot) atten = atten * spot * spot;
+    rr = CHN(7) * atten; rg2 = CHN(8) * atten; rb = CHN(9) * atten;
+  }
+  float hx = q.vx + Lx, hy = q.vy + Ly, hz = q.vz + Lz;
+  const float hn = rsq(fmaxf(hx * hx + hy * hy + hz * hz, 1e-12f));
+  hx = hx * hn; hy = hy * hn; hz = hz * hn;
+  const float ndl = fmaxf(q.nx * Lx + q.ny * Ly + q.nz * Lz, 0.0f);
+  const float ndh = fmaxf(q.nx * hx + q.ny * hy + q.nz * hz, 0.0f);
+  const float vdh = fmaxf(q.vx * hx + q.vy * hy + q.vz * hz, 0.0f);
+  const float dterm = ndh * ndh * (q.a2 - 1.0f) + 1.0f;
+  const float D = q.a2 / fmaxf(PI_ * dterm * dterm, 1e-8f);
+  const float gv = ndl * q.smith_v;
+  const float gl = q.ndv * sqrtf(fmaxf(ndl * ndl * (1.0f - q.a2) + q.a2, 1e-8f));
+  const float Vis = 0.5f / fmaxf(gv + gl, 1e-8f);
+  float fr5 = clip(1.0f - vdh, 0.0f, 1.0f);
+  fr5 = fr5 * fr5 * fr5 * fr5 * fr5;
+  const float DV = D * Vis;
+  float ph = LUM0 * shade(q.f0r, q.dr, rr, fr5, DV, ndl)
+      + LUM1 * shade(q.f0g, q.dg, rg2, fr5, DV, ndl) + LUM2 * shade(q.f0b, q.db, rb, fr5, DV, ndl);
+  if (!(q.valid > 0.5f && CHN(17) >= 0.0f)) ph = 0.0f;
+  return ph;
+#undef CHN
+}
+
+__global__ void __launch_bounds__(SEG)
 restir_candidates_kernel(const float* __restrict__ flat3, const int* __restrict__ tsel,
                          const float* __restrict__ planes, const float* __restrict__ cam,
                          float* __restrict__ out_y, float* __restrict__ out_u,
                          float* __restrict__ out_v, float* __restrict__ out_w,
                          float* __restrict__ out_row, int Hp, int Wp, int T,
                          int num_candidates, uint32_t frame, int y0, int w_log) {
-  extern __shared__ float tilebuf[];            // [ROWS][CH][SEG]
+  __shared__ float tb[CHS * SEG];
   const int p = threadIdx.x;                    // segment rank
-  const int r = threadIdx.y;                    // row in the block
   const int j = blockIdx.x;                     // segment
-  const int gyl = blockIdx.y * ROWS + r;        // local row
+  const int gyl = blockIdx.y;                   // local row
   const int gx = j * SEG + p;
-  const int nseg = Wp / SEG;
-  float* tb = tilebuf + r * CH * SEG;
-  int tid = tsel[gyl * nseg + j];
+  int tid = tsel[gyl * (Wp / SEG) + j];
   tid = min(max(tid, 0), T - 1);
   const float* src = flat3 + (size_t)tid * CH * SEG;
   for (int k = 0; k < CH; ++k) tb[k * SEG + p] = src[k * SEG + p];
+  {
+    const float* sc = tb + p;
+#define CHN(k) sc[(k) * SEG]
+    const float cxn = CHN(5) * CHN(9) - CHN(6) * CHN(8);
+    const float cyn = CHN(6) * CHN(7) - CHN(4) * CHN(9);
+    const float czn = CHN(8) * CHN(4) - CHN(5) * CHN(7);
+    const float n2 = cxn * cxn + cyn * cyn + czn * czn;
+    const float inv_n = rsq(fmaxf(n2, 1e-24f));
+    tb[(CH + 0) * SEG + p] = cxn;
+    tb[(CH + 1) * SEG + p] = cyn;
+    tb[(CH + 2) * SEG + p] = czn;
+    tb[(CH + 3) * SEG + p] = inv_n;
+    tb[(CH + 4) * SEG + p] = 0.5f * n2 * inv_n;
+    tb[(CH + 5) * SEG + p] = fmaxf(CHN(10), 1e-4f);
+    tb[(CH + 6) * SEG + p] = fmaxf(CHN(11) - CHN(12), 1e-4f);
+#undef CHN
+  }
   __syncthreads();
 
   const size_t HW = (size_t)Hp * Wp;
@@ -98,9 +184,7 @@ restir_candidates_kernel(const float* __restrict__ flat3, const int* __restrict_
   const float ar = planes[6 * HW + at], ag = planes[7 * HW + at], ab = planes[8 * HW + at];
   const float rough = clip(planes[9 * HW + at], MIN_ROUGH, 1.0f);
   const float metal = planes[10 * HW + at];
-  const bool valid = planes[11 * HW + at] > 0.5f;
   const float cx = cam[0], cy = cam[1], cz = cam[2];
-
   const float tvx = cx - px, tvy = cy - py, tvz = cz - pz;
   const float vn = rsq(fmaxf(tvx * tvx + tvy * tvy + tvz * tvz, 1e-12f));
   const float vx = tvx * vn, vy = tvy * vn, vz = tvz * vn;
@@ -108,93 +192,25 @@ restir_candidates_kernel(const float* __restrict__ flat3, const int* __restrict_
   const float alpha = rough * rough;
   const float a2 = alpha * alpha;
   const float inv_m = 1.0f - metal;
-  const float dr = ar * inv_m, dg = ag * inv_m, db = ab * inv_m;
-  const float f0r = F0 * inv_m + ar * metal;
-  const float f0g = F0 * inv_m + ag * metal;
-  const float f0b = F0 * inv_m + ab * metal;
+  const Pixel q = {px, py, pz, nx, ny, nz, vx, vy, vz, ndv, a2, ar * inv_m, ag * inv_m,
+                   ab * inv_m, F0 * inv_m + ar * metal, F0 * inv_m + ag * metal,
+                   F0 * inv_m + ab * metal, sqrtf(fmaxf(ndv * ndv * (1.0f - a2) + a2, 1e-8f)),
+                   planes[11 * HW + at] > 0.5f ? 1.0f : 0.0f};
   const uint32_t pix = (uint32_t)((gyl + y0) * w_log + gx);
 
   float ry = -1.0f, ru = 0.0f, rv = 0.0f, w_sum = 0.0f;
   int win = -1;                                  // winner's slot
   for (int c = 0; c < num_candidates; ++c) {
     const int s = (p + 17 * c) % SEG;
-    const float* ch = tb + s;
-#define CHN(k) ch[(k) * SEG]
     uint32_t b0 = pix, b1 = frame, b2 = (uint32_t)(100 + c);
     pcg3d(b0, b1, b2);
     const float u_r = u01(b0), u_u = u01(b1), u_v = u01(b2);
-    const float lid = CHN(17);
-    const float inv_pdf = CHN(16);
-    const bool is_em = CHN(13) > 0.5f;
-    const bool is_dir = (CHN(0) < 0.5f) && !is_em;
-    const bool is_spot = (CHN(0) > 1.5f) && !is_em;
-
-    // analytic light
-    const float tlx = is_dir ? -CHN(4) : CHN(1) - px;
-    const float tly = is_dir ? -CHN(5) : CHN(2) - py;
-    const float tlz = is_dir ? -CHN(6) : CHN(3) - pz;
-    const float d2a = fmaxf(tlx * tlx + tly * tly + tlz * tlz, 1e-16f);
-    const float inv_da = rsq(d2a);
-    const float lax = tlx * inv_da, lay = tly * inv_da, laz = tlz * inv_da;
-    const float dist_a = d2a * inv_da;
-    const float xr = clip(dist_a / fmaxf(CHN(10), 1e-4f), 0.0f, 1.0f);
-    float fall = 1.0f - xr * xr * xr * xr;
-    fall = clip(fall * fall, 0.0f, 1.0f);
-    float atten = is_dir ? 1.0f : fall / fmaxf(d2a, 1e-4f);
-    const float cd = -(lax * CHN(4) + lay * CHN(5) + laz * CHN(6));
-    const float spot = clip((cd - CHN(12)) / fmaxf(CHN(11) - CHN(12), 1e-4f), 0.0f, 1.0f);
-    if (is_spot) atten = atten * spot * spot;
-    const float rra = CHN(7) * atten, rga = CHN(8) * atten, rba = CHN(9) * atten;
-
-    // emissive triangle
-    const bool over = (u_u + u_v) > 1.0f;
-    const float uu = over ? 1.0f - u_u : u_u;
-    const float vv = over ? 1.0f - u_v : u_v;
-    const float plx = CHN(1) + uu * CHN(4) + vv * CHN(7) - px;
-    const float ply = CHN(2) + uu * CHN(5) + vv * CHN(8) - py;
-    const float plz = CHN(3) + uu * CHN(6) + vv * CHN(9) - pz;
-    const float d2e = fmaxf(plx * plx + ply * ply + plz * plz, 1e-8f);
-    const float inv_de = rsq(d2e);
-    const float lex = plx * inv_de, ley = ply * inv_de, lez = plz * inv_de;
-    const float cxn = CHN(5) * CHN(9) - CHN(6) * CHN(8);
-    const float cyn = CHN(6) * CHN(7) - CHN(4) * CHN(9);
-    const float czn = CHN(8) * CHN(4) - CHN(5) * CHN(7);
-    const float n2 = cxn * cxn + cyn * cyn + czn * czn;
-    const float inv_n = rsq(fmaxf(n2, 1e-24f));
-    const float area = 0.5f * n2 * inv_n;
-    const float cos_l = fabsf((cxn * lex + cyn * ley + czn * lez) * inv_n);
-    const float ge = cos_l * area / d2e;
-    const float rre = CHN(10) * ge, rge = CHN(11) * ge, rbe = CHN(12) * ge;
-
-    const float Lx = is_em ? lex : lax, Ly = is_em ? ley : lay, Lz = is_em ? lez : laz;
-    const float rr = is_em ? rre : rra, rg2 = is_em ? rge : rga, rb = is_em ? rbe : rba;
-
-    // GGX BRDF * NdotL p-hat
-    float hx = vx + Lx, hy = vy + Ly, hz = vz + Lz;
-    const float hn = rsq(fmaxf(hx * hx + hy * hy + hz * hz, 1e-12f));
-    hx = hx * hn; hy = hy * hn; hz = hz * hn;
-    const float ndl = fmaxf(nx * Lx + ny * Ly + nz * Lz, 0.0f);
-    const float ndh = fmaxf(nx * hx + ny * hy + nz * hz, 0.0f);
-    const float vdh = fmaxf(vx * hx + vy * hy + vz * hz, 0.0f);
-    const float dterm = ndh * ndh * (a2 - 1.0f) + 1.0f;
-    const float D = a2 / fmaxf(PI_ * dterm * dterm, 1e-8f);
-    const float gv = ndl * sqrtf(fmaxf(ndv * ndv * (1.0f - a2) + a2, 1e-8f));
-    const float gl = ndv * sqrtf(fmaxf(ndl * ndl * (1.0f - a2) + a2, 1e-8f));
-    const float Vis = 0.5f / fmaxf(gv + gl, 1e-8f);
-    float fr5 = clip(1.0f - vdh, 0.0f, 1.0f);
-    fr5 = fr5 * fr5 * fr5 * fr5 * fr5;
-    const float DV = D * Vis;
-    float ph = LUM0 * shade(f0r, dr, rr, fr5, DV, ndl) + LUM1 * shade(f0g, dg, rg2, fr5, DV, ndl)
-        + LUM2 * shade(f0b, db, rb, fr5, DV, ndl);
-    if (!(valid && lid >= 0.0f)) ph = 0.0f;
-
     // streaming RIS update
-    const float w_c = ph * inv_pdf;
+    const float w_c = phat(tb + s, q, u_u, u_v) * tb[16 * SEG + s];
     w_sum = w_sum + w_c;
     if ((u_r * fmaxf(w_sum, 1e-20f)) < w_c) {
-      ry = lid; ru = u_u; rv = u_v; win = s;
+      ry = tb[17 * SEG + s]; ru = u_u; rv = u_v; win = s;
     }
-#undef CHN
   }
   out_y[at] = ry;
   out_u[at] = ru;
@@ -210,21 +226,10 @@ extern "C" int hr_restir_candidates(const void* flat3, const void* tsel, const v
                                     const void* cam, void* y, void* u, void* v, void* w_sum,
                                     void* row, int Hp, int Wp, int T, int num_candidates,
                                     int frame, int y0, int w_log, void* stream) {
-  static bool smem_set = false;
-  const int smem = ROWS * CH * SEG * (int)sizeof(float);
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        restir_candidates_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = true;
-  }
-  if (Hp > 0 && Wp > 0) {
-    const dim3 block(SEG, ROWS);
-    const dim3 grid(Wp / SEG, Hp / ROWS);
-    restir_candidates_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+  if (Hp > 0 && Wp > 0)
+    restir_candidates_kernel<<<dim3(Wp / SEG, Hp), SEG, 0, (cudaStream_t)stream>>>(
         (const float*)flat3, (const int*)tsel, (const float*)planes, (const float*)cam,
         (float*)y, (float*)u, (float*)v, (float*)w_sum, (float*)row, Hp, Wp, T,
         num_candidates, (uint32_t)frame, y0, w_log);
-  }
   return (int)cudaGetLastError();
 }

@@ -50,8 +50,8 @@ _SIGNATURES = {
     "hr_raster_plan": (_VP,) + (_I,) * 2 + (_VP,) * 4,
     # n_out
     "hr_raster_ctas_per_sm": (_VP,),
-    # rays, table, occ, ovf, T, N, stream
-    "hr_beam_any_hit_tiles": (_VP, _VP, _VP, _VP, _I, _I, _VP),
+    # rays, table, occ, ovf, list, counters, T, N, I, stream
+    "hr_beam_any_hit_tiles": (_VP,) * 6 + (_I,) * 3 + (_VP,),
     # flat3, tsel, planes, cam, y, u, v, w_sum, row, Hp, Wp, T, N, frame, y0,
     # w_log, stream
     "hr_restir_candidates": (_VP,) * 9 + (_I,) * 7 + (_VP,),

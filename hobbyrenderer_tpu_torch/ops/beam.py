@@ -21,9 +21,10 @@ PIX = TILE * TILE
 REF_TRI_CHUNK = 256      # triangles per bounding-box chunk
 REF_RAY_CHUNK = 4096     # rays per box-cull step
 REF_PAIR_BATCH = 8192    # (ray, chunk) pairs per Möller-Trumbore step
-STACK = 64               # the kernel's per-ray stack depth
+STACK = 64               # entries of the kernel's per-lane stack (check_stack)
 
 launches = 0      # kernel launches (CPU reference calls are not counted)
+_counters = {}    # (device index, stream) -> the kernel's counters, left at zero
 
 
 def beam_table(table: np.ndarray) -> np.ndarray:
@@ -32,7 +33,7 @@ def beam_table(table: np.ndarray) -> np.ndarray:
     triangle records [v0 e1 e2 tid pad6], lane 127 is the leaf marker."""
     n, w = table.shape
     assert w == 40, "beam_table expects 4-wide unified rows"
-    I = (((3 * n + 1) // 4) - 1) // 3
+    I = _leaf_start(n)
     tris = table.reshape(n, 4, 10)
     leaf64 = np.concatenate([tris, np.zeros((n, 4, 6), table.dtype)], -1).reshape(n, 64)
     interior64 = np.concatenate([table[:, :24], np.zeros((n, 40), table.dtype)], -1)
@@ -65,7 +66,9 @@ def unpack_tiles(img_t, H: int, W: int):
 
 def beam_any_hit_tiles(btable, rays):
     """rays (T, 8, 1024) f32 [ox oy oz dx dy dz tmax act], btable (N, 128)
-    f32 -> occluded (T, 1024) f32 (1 = hit), overflow flags (T,) f32."""
+    f32 -> occluded (T, 1024) f32 (1 = hit), overflow flags (T,) f32. Raises
+    for a table deeper than the kernel's stack can walk (``check_stack``)."""
+    check_stack(btable.shape[0])
     if rays.device.type == "cpu":
         return beam_any_hit_tiles_reference(btable, rays)
     return _beam_any_hit_tiles_cuda(btable, rays)
@@ -81,13 +84,25 @@ def _beam_any_hit_tiles_cuda(btable, rays):
     lib = kernels.library()
     occ = torch.empty((T, PIX), dtype=torch.float32, device=rays.device)
     ovf = torch.empty((T,), dtype=torch.float32, device=rays.device)
+    lanes = torch.empty((T * PIX,), dtype=torch.int32, device=rays.device)
     err = lib.hr_beam_any_hit_tiles(rays.data_ptr(), btable.data_ptr(),
-                                    occ.data_ptr(), ovf.data_ptr(), T,
-                                    btable.shape[0],
+                                    occ.data_ptr(), ovf.data_ptr(), lanes.data_ptr(),
+                                    counters(rays.device).data_ptr(), T,
+                                    btable.shape[0], _leaf_start(btable.shape[0]),
                                     kernels.stream_handle(rays.device))
     kernels.check(err, "hr_beam_any_hit_tiles")
     launches += 1
     return occ, ovf
+
+
+def counters(device) -> torch.Tensor:
+    """The kernel's counters (live lanes, packet queue, CTAs done) on this
+    device's current stream: zeroed once; each launch leaves them at zero,
+    and launches on one stream run one after another."""
+    key = (device.index, kernels.stream_handle(device))
+    if key not in _counters:
+        _counters[key] = torch.zeros((3,), dtype=torch.int32, device=device)
+    return _counters[key]
 
 
 def tile_majority_mask(key, H: int, W: int, probes: int = 8, exclude: int = None):
@@ -192,26 +207,82 @@ def beam_any_hit_tiles_reference(btable, rays):
     return occ.reshape(T, PIX).to(torch.float32), zeros_t
 
 
-def beam_walk_rows(btable, rays):
-    """The kernel's per-ray walk as a plain lockstep wavefront (any device)
-    -> (occluded (T, 1024) f32, visited (N,) bool: the table rows some ray
-    read). Pop the top of a STACK-deep stack; a leaf tests its 4
-    records, an interior row pushes children 0..3 whose padded box the ray
-    meets; a hit ends the ray. It measures what the walk reads (the byte
-    term of the kernel's bound); the plain version above is what the kernel
-    is held against."""
+def packet_order(device=None):
+    """(1024,) int64: the tile lane of each position in the kernel's packet
+    order: 8x4 pixel blocks, the blocks row by row. A tile's live lanes are
+    listed in this order, so a full packet of 32 is a square-ish patch of
+    neighbouring pixels (rays that visit the same rows)."""
+    j = torch.arange(PIX, device=device)
+    b, i = j // 32, j % 32
+    x = (b % 4) * 8 + i % 8
+    y = (b // 4) * 4 + i // 8
+    return y * TILE + x
+
+
+def live_lanes(rays):
+    """The kernel's list of live lanes: (T, 8, 1024) rays -> (L,) int64
+    indices into the flattened (T * 1024) lanes of the lanes with act > 0.5
+    and t_max > 1e-4, each tile's in ``packet_order``. Tiles come in tile
+    order here; the kernel appends them in whatever order its CTAs run."""
+    order = packet_order(rays.device)
+    live = ((rays[:, 7] > 0.5) & (rays[:, 6] > 1e-4))[:, order]            # (T, 1024)
+    t, j = torch.nonzero(live, as_tuple=True)
+    return t * PIX + order[j]
+
+
+def tree_depth(n_rows: int) -> int:
+    """Levels of the implicit 4-wide heap of n_rows rows (level k holds rows
+    (4^k - 1)/3 .. (4^(k+1) - 1)/3 - 1)."""
+    d, full = 0, 0
+    while full < n_rows:
+        full = full * 4 + 1
+        d += 1
+    return d
+
+
+def check_stack(n_rows: int):
+    """Raise unless the walk's stack holds every entry a table of n_rows
+    rows can need: a depth-first walk that pushes up to 4 children a row
+    holds at most 3 * (depth - 1) + 1 entries."""
+    need = 3 * (tree_depth(n_rows) - 1) + 1
+    if need > STACK:
+        raise ValueError(f"a beam table of {n_rows} rows is {tree_depth(n_rows)} levels deep: "
+                         f"its walk needs {need} stack entries, the kernel holds {STACK}")
+
+
+def _leaf_start(n_rows: int) -> int:
+    """The first leaf row of beam_table's heap (rows below it are interior)."""
+    return (((3 * n_rows + 1) // 4) - 1) // 3
+
+
+def beam_walk(btable, rays):
+    """The kernel's walk replayed as plain PyTorch (any device), all live
+    lanes in lockstep: each lane walks the tree depth first with its own
+    stack; a row below the leaf start pushes its children 0..3 whose padded
+    box the ray meets (child 3 is visited first), a leaf row tests the 4
+    records and a hit ends the lane. Any hit does not depend on the order
+    of the walk, so its occlusion equals the brute-force plain version's.
+
+    Returns (occluded (T, 1024) f32, visited (N,) bool: the rows some lane
+    read, work: a dict of counts — live lanes (``live_lanes``), rows popped
+    (interior and leaf; ``lane_steps`` their sum, ``max_steps`` the longest
+    lane's), lane box tests and lane record tests)."""
     N = btable.shape[0]
+    check_stack(N)
+    I = _leaf_start(N)
     T = rays.shape[0]
     dev = rays.device
     r = rays.permute(0, 2, 1).reshape(-1, 8)
-    idx = torch.nonzero((r[:, 7] > 0.5) & (r[:, 6] > 1e-4)).flatten()
+    idx = live_lanes(rays)
     o, d, tmax = r[idx, 0:3], r[idx, 3:6], r[idx, 6]
     inv = safe_inv_dir(d)
     R = idx.shape[0]
     stk = torch.zeros((R, STACK), dtype=torch.int64, device=dev)
     sp = torch.ones(R, dtype=torch.int64, device=dev)
     hit = torch.zeros(R, dtype=torch.bool, device=dev)
+    steps = torch.zeros(R, dtype=torch.int64, device=dev)
     visited = torch.zeros(N, dtype=torch.bool, device=dev)
+    work = dict(live=R, interior_rows=0, leaf_rows=0, box_tests=0, record_tests=0)
     while True:
         li = torch.nonzero((sp > 0) & ~hit).flatten()
         if li.numel() == 0:
@@ -219,28 +290,44 @@ def beam_walk_rows(btable, rays):
         spl = sp[li] - 1
         q = stk[li, spl]
         visited[q] = True
-        row = btable[q]
-        leaf = row[:, 127] > 0.5
-        recs = row[:, :64].reshape(-1, 4, 16)
-        tri = torch.where(recs[..., 9:10] >= 0.0, recs[..., :9], 0.0)   # pad: det 0
-        hit[li] = leaf & _mt_any(o[li], d[li], tmax[li], tri)
-        box = row[:, :24].reshape(-1, 4, 6)
+        steps[li] += 1
+        leaf = q >= I
+        ll, il = li[leaf], li[~leaf]
+        if ll.numel():
+            recs = btable[q[leaf]][:, :64].reshape(-1, 4, 16)
+            real = recs[..., 9] >= 0.0
+            tri = torch.where(real[..., None], recs[..., :9], 0.0)     # pad: det 0
+            per = torch.stack([_mt_any(o[ll], d[ll], tmax[ll], tri[:, k:k + 1])
+                               for k in range(4)], -1)
+            # a lane tests its real records in order up to its first hit
+            before = torch.cumsum(per.to(torch.int64), -1) - per.to(torch.int64) == 0
+            work["record_tests"] += int((real & before).sum())
+            work["leaf_rows"] += ll.numel()
+            hit[ll] = per.any(-1)
+        qi = q[~leaf]
+        box = btable[qi][:, :24].reshape(-1, 4, 6)
         lo, hi = box[..., :3], box[..., 3:]
         pad = 1e-5 * torch.clamp(torch.maximum(lo.abs(), hi.abs()), min=1.0)
-        t0 = (lo - pad - o[li, None]) * inv[li, None]
-        t1 = (hi + pad - o[li, None]) * inv[li, None]
+        t0 = (lo - pad - o[il, None]) * inv[il, None]
+        t1 = (hi + pad - o[il, None]) * inv[il, None]
         tn = torch.clamp(torch.minimum(t0, t1).amax(-1), min=0.0)
-        tf = torch.minimum(torch.maximum(t0, t1).amin(-1), tmax[li, None])
-        child = 4 * q[:, None] + 1 + torch.arange(4, device=dev)
-        push = ~leaf[:, None] & (lo <= hi).all(-1) & (tn <= tf) & (child < N)
+        tf = torch.minimum(torch.maximum(t0, t1).amin(-1), tmax[il, None])
+        child = 4 * qi[:, None] + 1 + torch.arange(4, device=dev)
+        push = (lo <= hi).all(-1) & (tn <= tf) & (child < N)
+        work["box_tests"] += int((child < N).sum())
+        work["interior_rows"] += il.numel()
+        spi = spl[~leaf]
         for ch in range(4):
-            m = push[:, ch] & (spl < STACK)
-            stk[li[m], spl[m]] = child[m, ch]
-            spl = spl + m.to(torch.int64)
+            m = push[:, ch]
+            stk[il[m], spi[m]] = child[m, ch]
+            spi = spi + m.to(torch.int64)
         sp[li] = spl
-    occ = torch.zeros(r.shape[0], device=dev)
+        sp[il] = spi
+    occ = torch.zeros(T * PIX, device=dev)
     occ[idx] = hit.to(torch.float32)
-    return occ.reshape(T, PIX), visited
+    work["lane_steps"] = int(steps.sum())
+    work["max_steps"] = int(steps.max()) if R else 0
+    return occ.reshape(T, PIX), visited, work
 
 
 def beam_any_hit(btable, o, d, t_max, active, H: int, W: int):

@@ -18,7 +18,7 @@ import torch
 from hobbyrenderer_tpu_torch import kernels
 from hobbyrenderer_tpu_torch.utils.rng import pcg3d
 
-ROWS = 8          # scanlines per block
+ROWS = 8          # planes are padded to whole 8-scanline blocks (the TPU's)
 SEG = 128         # pixels per segment == presample tile slots
 CH = 18           # packed light row channels: row(16) + inv_pdf + id
 N_PLANES = 12     # px py pz nx ny nz ar ag ab rough metal valid

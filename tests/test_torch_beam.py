@@ -1,7 +1,10 @@
 """Any-hit occlusion: the port's plain version of the kernel (brute-force
 Möller-Trumbore over the table's leaf triangles) against the JAX Pallas beam
-kernel in interpret mode; the port's jax-matching bilinear resize; and — on
-a GPU — the CUDA kernel against its plain version."""
+kernel in interpret mode; the kernel's walk replayed in plain PyTorch
+against the plain version, on coherent, jittered, sparsely masked
+and incoherent rays; the walk's stack check; the port's jax-matching
+bilinear resize; and — on a GPU — the CUDA kernel against its plain
+version."""
 
 import jax
 import jax.numpy as jnp
@@ -56,13 +59,55 @@ def _coherent_rays(H, W, seed=1, jitter=0.0):
     return o.astype(np.float32), d.astype(np.float32)
 
 
+def _incoherent_rays(H, W, seed):
+    """RTXDIGI-like visibility rays: origins on the grid plane, each aimed
+    at its own random point of the soup's box, t_max just short of it."""
+    o, _ = _coherent_rays(H, W, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    target = (rng.random((H, W, 3), np.float32) - 0.5) * 4.0
+    v = target - o
+    dist = np.linalg.norm(v, axis=-1)
+    return o, (v / dist[..., None]).astype(np.float32), (dist - 1e-3).astype(np.float32)
+
+
+def _sparse_majority_mask(H, W, seed):
+    """RTXDI's second any-hit call masks each tile to the lanes of its
+    second-most-common winner: a few scattered lanes a tile."""
+    rng = np.random.default_rng(seed)
+    key = torch.as_tensor(rng.integers(0, 5, (H, W)))
+    match = tbeam.tile_majority_mask(key, H, W, exclude=-1)
+    key2 = torch.where(match, -1, key)
+    return tbeam.tile_majority_mask(key2, H, W, exclude=-1) & ~match
+
+
 CASES = {
     "coherent": dict(n=900, seed=0, H=64, W=64, ray_seed=1, jitter=0.0),
     "jittered": dict(n=400, seed=7, H=32, W=64, ray_seed=5, jitter=0.05),
+    "sparse_majority": dict(n=600, seed=2, H=64, W=64, ray_seed=3, jitter=0.02),
+    "incoherent": dict(n=600, seed=5, H=64, W=32, ray_seed=8, jitter=None),
 }
+PALLAS_CASES = ("coherent", "jittered")
 
 
-@pytest.mark.parametrize("case", list(CASES))
+def _case_rays(c):
+    """The case's packed rays (T, 8, 1024) and its btable, as torch tensors."""
+    H, W = c["H"], c["W"]
+    btable = torch.as_tensor(tbeam.beam_table(tbvh.build_bvh(_tri_soup(c["n"], c["seed"])).table))
+    if c["jitter"] is None:
+        o, d, tm = _incoherent_rays(H, W, c["ray_seed"])
+        tm = torch.as_tensor(tm)
+    else:
+        o, d = _coherent_rays(H, W, seed=c["ray_seed"], jitter=c["jitter"])
+        tm = torch.full((H, W), 50.0)
+    active = torch.ones((H, W), dtype=torch.bool)
+    active[3::11, :] = False
+    if c is CASES["sparse_majority"]:
+        active = _sparse_majority_mask(H, W, c["ray_seed"])
+    rays = tbeam.pack_rays_tiles(torch.as_tensor(o), torch.as_tensor(d), tm, active, H, W)
+    return btable, rays
+
+
+@pytest.mark.parametrize("case", PALLAS_CASES)
 def test_plain_k4_matches_pallas_kernel(case):
     c = CASES[case]
     H, W = c["H"], c["W"]
@@ -97,24 +142,66 @@ def test_plain_k4_matches_pallas_kernel(case):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_beam_walk_rows_matches_plain(case):
-    """The kernel's stack walk as a wavefront gives the plain version's
-    occlusion; the rows it reads include the root and each read row's
-    parent, and are fewer than the table's."""
+    """The kernel's walk, replayed in plain PyTorch, gives the plain
+    version's occlusion; the rows it reads include the root and each read
+    row's parent, and are fewer than the table's; the kernel's list holds
+    every live lane once, each tile's in the 8x4 packet order."""
     c = CASES[case]
-    H, W = c["H"], c["W"]
-    tris = _tri_soup(c["n"], seed=c["seed"])
-    btable = torch.as_tensor(tbeam.beam_table(tbvh.build_bvh(tris).table))
-    o, d = _coherent_rays(H, W, seed=c["ray_seed"], jitter=c["jitter"])
-    active = torch.ones((H, W), dtype=torch.bool)
-    active[3::11, :] = False
-    rays = tbeam.pack_rays_tiles(torch.as_tensor(o), torch.as_tensor(d),
-                                 torch.full((H, W), 50.0), active, H, W)
-    occ, seen = tbeam.beam_walk_rows(btable, rays)
+    btable, rays = _case_rays(c)
+    occ, seen, work = tbeam.beam_walk(btable, rays)
     ref, _ = tbeam.beam_any_hit_tiles_reference(btable, rays)
-    assert torch.equal(occ, ref) and 0.05 < float(ref.mean()) < 0.95
+    live = (rays[:, 7] > 0.5) & (rays[:, 6] > 1e-4)
+    assert torch.equal(occ, ref) and 0.05 < float(ref[live].mean()) < 0.95
     rows = torch.nonzero(seen).flatten()
     assert bool(seen[0]) and bool(seen[(rows[rows > 0] - 1) // 4].all())
     assert 1 < rows.numel() < seen.numel()
+    lanes = tbeam.live_lanes(rays)
+    assert torch.equal(torch.sort(lanes).values, torch.nonzero(live.flatten()).flatten())
+    rank = torch.argsort(tbeam.packet_order())               # tile lane -> place in the order
+    tile, lane = lanes // tbeam.PIX, lanes % tbeam.PIX
+    assert bool((torch.diff(tile) >= 0).all())
+    same = torch.diff(tile) == 0
+    assert bool((torch.diff(rank[lane])[same] > 0).all())
+    assert work["live"] == lanes.numel()
+    assert work["interior_rows"] + work["leaf_rows"] == work["lane_steps"] >= rows.numel()
+    assert 1 < work["max_steps"] <= work["lane_steps"]
+    assert 0 < work["record_tests"] and 0 < work["box_tests"]
+    if case == "sparse_majority":
+        assert float(live.float().mean()) < 0.3
+
+
+def test_packet_order_is_8x4_blocks():
+    """The packet order is a permutation of the tile's lanes in which each
+    run of 32 is one 8x4 pixel block; beam_table's leaf marker agrees with
+    the leaf start the kernel computes from the row count."""
+    order = tbeam.packet_order()
+    assert torch.equal(torch.sort(order).values, torch.arange(tbeam.PIX))
+    blk = order.reshape(32, 32)
+    x, y = blk % tbeam.TILE, blk // tbeam.TILE
+    assert bool(((x.amax(1) - x.amin(1)) == 7).all() and ((y.amax(1) - y.amin(1)) == 3).all())
+    btable, _ = _case_rays(CASES["coherent"])
+    n = btable.shape[0]
+    marker = btable[:, 127] > 0.5
+    assert torch.equal(marker, torch.arange(n) >= tbeam._leaf_start(n))
+
+
+def test_too_deep_table_raises():
+    """A table deeper than the stack holds raises in the wrapper and in the
+    replay instead of dropping children; the check reads only the row
+    count, so an expanded zero tensor serves. The stress table's 349,525
+    rows (10 levels) need 28 entries."""
+    assert tbeam.tree_depth(1) == 1 and tbeam.tree_depth(5) == 2 and tbeam.tree_depth(6) == 3
+    assert tbeam.tree_depth(349_525) == 10
+    tbeam.check_stack(349_525)
+    levels = (tbeam.STACK - 1) // 3 + 1        # the deepest tree the stack holds
+    deepest = (4 ** levels - 1) // 3
+    tbeam.check_stack(deepest)
+    too_deep = torch.zeros(1, 128).expand(deepest + 1, 128)
+    rays = torch.zeros(1, 8, tbeam.PIX)
+    with pytest.raises(ValueError, match="stack"):
+        tbeam.beam_any_hit_tiles(too_deep, rays)
+    with pytest.raises(ValueError, match="stack"):
+        tbeam.beam_walk(too_deep, rays)
 
 
 def test_beam_any_hit_image_roundtrip():
@@ -166,3 +253,4 @@ def test_cuda_k4_matches_plain(cuda_device):
     ref, _ = tbeam.beam_any_hit_tiles_reference(btable, rays)
     assert torch.equal(occ, ref)
     assert not ovf.any()
+    assert all(torch.equal(occ, tbeam.beam_any_hit_tiles(btable, rays)[0]) for _ in range(2))

@@ -43,6 +43,7 @@ from hobbyrenderer_tpu_torch.scene.procedural import (camera_looking_at, make_st
                                                       plane_geometry)
 from hobbyrenderer_tpu_torch.scene.scene import LIGHT_POINT, Light, Material, Node, Scene
 from hobbyrenderer_tpu_torch.utils import math as hm
+from hobbyrenderer_tpu_torch.utils.rng import pcg3d
 from tests.torch_parity import same_mesh_cooker
 
 
@@ -219,6 +220,119 @@ def test_denoise_matches_jax(profile):
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=1e-3, atol=1e-5)
     for a, b in zip(st_t, st_j):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
+
+
+def _k2_kernel_order(flat3, tsel, planes, cam, frame, y0, n_cand, w_log):
+    """csrc/restir_candidates.cu's order of work in plain PyTorch: the 7
+    terms that depend on the light slot alone (the emissive triangle's
+    normal, 1/|n|, area, max(range, 1e-4), the spot denominator) computed
+    once a tile slot, then each candidate evaluates only its slot's kind of
+    light before the GGX p-hat and the streaming RIS update."""
+    rsq = trk._rsqrt
+    c = flat3.permute(1, 0, 2)                                  # (18, T, 128)
+    cxn = c[5] * c[9] - c[6] * c[8]
+    cyn = c[6] * c[7] - c[4] * c[9]
+    czn = c[8] * c[4] - c[5] * c[7]
+    n2 = cxn * cxn + cyn * cyn + czn * czn
+    inv_n = rsq(torch.clamp(n2, min=1e-24))
+    slot = torch.stack([cxn, cyn, czn, inv_n, 0.5 * n2 * inv_n, torch.clamp(c[10], min=1e-4),
+                        torch.clamp(c[11] - c[12], min=1e-4)], 1)     # (T, 7, 128)
+    ext = torch.cat([flat3, slot], 1)
+    _, Hp, Wp = planes.shape
+    tiles = ext[torch.clamp(tsel.to(torch.int64), 0, flat3.shape[0] - 1)]   # (Hp, nseg, 25, 128)
+    px, py, pz, nx, ny, nz, ar, ag, ab, rg, metal, va = planes
+    rough = torch.clamp(rg, 0.03, 1.0)
+    tvx, tvy, tvz = cam[0] - px, cam[1] - py, cam[2] - pz
+    vn = rsq(torch.clamp(tvx * tvx + tvy * tvy + tvz * tvz, min=1e-12))
+    vx, vy, vz = tvx * vn, tvy * vn, tvz * vn
+    ndv = torch.clamp(nx * vx + ny * vy + nz * vz, min=1e-5)
+    a2 = (rough * rough) * (rough * rough)
+    inv_m = 1.0 - metal
+    dif = (ar * inv_m, ag * inv_m, ab * inv_m)
+    f0 = tuple(0.04 * inv_m + a * metal for a in (ar, ag, ab))
+    smith_v = torch.sqrt(torch.clamp(ndv * ndv * (1 - a2) + a2, min=1e-8))
+    gy = torch.arange(Hp, dtype=torch.int64)[:, None] + y0
+    pix = (gy * w_log + torch.arange(Wp, dtype=torch.int64)[None, :]).expand(Hp, Wp)
+    ry, ru, rv = torch.full((Hp, Wp), -1.0), torch.zeros((Hp, Wp)), torch.zeros((Hp, Wp))
+    w_sum, rrow = torch.zeros((Hp, Wp)), torch.zeros((16, Hp, Wp))
+    for k in range(n_cand):
+        ch = torch.roll(tiles, -((17 * k) % 128), dims=-1).permute(2, 0, 1, 3).reshape(25, Hp, Wp)
+        bits = pcg3d(torch.stack([pix, torch.full_like(pix, frame),
+                                  torch.full_like(pix, 100 + k)], -1))
+        u_r, u_u, u_v = (trk._u01(bits[..., i]) for i in range(3))
+        em = ch[13] > 0.5
+        L, rad = torch.zeros((3, Hp, Wp)), torch.zeros((3, Hp, Wp))
+        e, a_ = em, ~em
+        # emissive slots: a point on the triangle, the per-slot normal and area
+        over = (u_u + u_v)[e] > 1.0
+        uu = torch.where(over, 1.0 - u_u[e], u_u[e])
+        vv = torch.where(over, 1.0 - u_v[e], u_v[e])
+        pl = [ch[1 + i][e] + uu * ch[4 + i][e] + vv * ch[7 + i][e] - q[e]
+              for i, q in enumerate((px, py, pz))]
+        d2e = torch.clamp(pl[0] * pl[0] + pl[1] * pl[1] + pl[2] * pl[2], min=1e-8)
+        inv_de = rsq(d2e)
+        le = [x * inv_de for x in pl]
+        cos_l = torch.abs((ch[18][e] * le[0] + ch[19][e] * le[1] + ch[20][e] * le[2]) * ch[21][e])
+        ge = cos_l * ch[22][e] / d2e
+        for i in range(3):
+            L[i][e] = le[i]
+            rad[i][e] = ch[10 + i][e] * ge
+        # analytic slots: directional, point or spot
+        is_dir = ch[0][a_] < 0.5
+        is_spot = ch[0][a_] > 1.5
+        tl = [torch.where(is_dir, -ch[4 + i][a_], ch[1 + i][a_] - q[a_])
+              for i, q in enumerate((px, py, pz))]
+        d2a = torch.clamp(tl[0] * tl[0] + tl[1] * tl[1] + tl[2] * tl[2], min=1e-16)
+        inv_da = rsq(d2a)
+        la = [x * inv_da for x in tl]
+        xr = torch.clamp((d2a * inv_da) / ch[23][a_], 0.0, 1.0)
+        fall = 1.0 - xr * xr * xr * xr
+        fall = torch.clamp(fall * fall, 0.0, 1.0)
+        atten = torch.where(is_dir, 1.0, fall / torch.clamp(d2a, min=1e-4))
+        cd = -(la[0] * ch[4][a_] + la[1] * ch[5][a_] + la[2] * ch[6][a_])
+        spot = torch.clamp((cd - ch[12][a_]) / ch[24][a_], 0.0, 1.0)
+        atten = torch.where(is_spot, atten * spot * spot, atten)
+        for i in range(3):
+            L[i][a_] = la[i]
+            rad[i][a_] = ch[7 + i][a_] * atten
+        hx, hy, hz = vx + L[0], vy + L[1], vz + L[2]
+        hn = rsq(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-12))
+        hx, hy, hz = hx * hn, hy * hn, hz * hn
+        ndl = torch.clamp(nx * L[0] + ny * L[1] + nz * L[2], min=0.0)
+        ndh = torch.clamp(nx * hx + ny * hy + nz * hz, min=0.0)
+        vdh = torch.clamp(vx * hx + vy * hy + vz * hz, min=0.0)
+        dterm = ndh * ndh * (a2 - 1.0) + 1.0
+        D = a2 / torch.clamp(3.14159265 * dterm * dterm, min=1e-8)
+        gl = ndv * torch.sqrt(torch.clamp(ndl * ndl * (1 - a2) + a2, min=1e-8))
+        Vis = 0.5 / torch.clamp(ndl * smith_v + gl, min=1e-8)
+        fr5 = torch.clamp(1.0 - vdh, 0.0, 1.0)
+        fr5 = fr5 * fr5 * fr5 * fr5 * fr5
+        DV = D * Vis
+        shade = [((1.0 - (f + (1.0 - f) * fr5)) * dc * (1.0 / 3.14159265)
+                  + DV * (f + (1.0 - f) * fr5)) * ndl * r_ for f, dc, r_ in zip(f0, dif, rad)]
+        ph = 0.2126 * shade[0] + 0.7152 * shade[1] + 0.0722 * shade[2]
+        ph = torch.where((va > 0.5) & (ch[17] >= 0.0), ph, 0.0)
+        w_c = ph * ch[16]
+        w_sum = w_sum + w_c
+        take = (u_r * torch.clamp(w_sum, min=1e-20)) < w_c
+        ry, ru, rv = torch.where(take, ch[17], ry), torch.where(take, u_u, ru), torch.where(take, u_v, rv)
+        rrow = torch.where(take[None], ch[:16], rrow)
+    return ry, ru, rv, w_sum, rrow.permute(1, 0, 2).contiguous()
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_k2_kernel_order_matches_plain(seed):
+    """The kernel computes the per-slot terms once a slot and only the
+    slot's kind of light; in plain PyTorch that order gives the plain
+    version's bits in all five outputs (the kernel, built with -fmad=false,
+    rounds each operation as both do)."""
+    flat3, tsel, planes, cam, w_log = (torch.as_tensor(a) for a in _k2_inputs(seed=seed, T=6))
+    ref = trk.restir_candidates_reference(flat3, tsel, planes, cam, 7, 16, 8, w_log)
+    got = _k2_kernel_order(flat3, tsel, planes, cam, 7, 16, 8, w_log)
+    assert float((ref[0] >= 0).float().mean()) > 0.5, "degenerate case"
+    assert 0.1 < float((flat3[:, 13] > 0.5).float().mean()) < 0.9
+    for name, a, b in zip(("y", "u", "v", "w_sum", "row"), got, ref):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
