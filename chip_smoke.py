@@ -42,7 +42,7 @@ a step reads, for K4 an interior row's 96 B and a leaf row's 160 B) over
 3.35 TB/s and its fp32 operations on this run's data over 67 TFLOP/s (H100
 SXM data sheet); for K1 and K5 the bytes and operations their work needs
 (bench_raster.raster_bound), for K2 and K4 bench_k2k4.k2_bound and
-k4_bound; K2's entry also carries its issue-rate estimate (its SASS
+k4_bound, for K6 bench_k6.k6_bound; K2's entry also carries its issue-rate estimate (its SASS
 instructions, from cuobjdump, over the card's 132 x 4 warp schedulers).
 K2, K3, K5, K6 and K7-K9 must equal their plain versions bit for bit, in
 every output, K1 in depth and visid (its attribute planes within 1e-4),
@@ -51,7 +51,8 @@ walk replayed in plain PyTorch on every lane). K3, which hands rays out
 through an atomic queue, is launched three times on each walk of phases 7
 and 18, K4, which hands out tile parts through one, on each of phase 3's
 four calls (the simple frame's SunShadow call and the first flagship
-frame's RTXDI and RTXDIGI calls), K2 on phase 6's call, and K1 and K5,
+frame's RTXDI and RTXDIGI calls), K2 on phase 6's call, K6 (a block's
+lanes over a thread-block cluster) on phase 13's three calls, and K1 and K5,
 which hand out work units through one, on every captured call of phases 2
 and 10: each must give the same bits each time.
 
@@ -246,8 +247,10 @@ def phase_wkernels(counters_reset, counts):
     launches, as the entry point times it), the kernel's own device time at
     64, 32 and 16 iterations, interleaved in one trace, with one step's
     marginal time (t64 - t32) / 32, one step's bytes over the HBM rate, the
-    call's bound (each distinct row or column it fetches read once, its
-    outputs written once) and one PyTorch call that computes the same
+    call's bound (K7: every step's rows read, as its spec makes each step's
+    gather real, and beside it each distinct row read once; K8 and K9: each
+    distinct column read once; outputs written once) and one PyTorch call
+    that computes the same
     values (the library figure; K8 and K9 also the last step's row 0 alone).
     No repeat may be elided: the ratio t(n) / t(n/2) and the marginal ratio
     (t(n) - t(n/2)) / (t(n/2) - t(n/4)), which a fixed cost does not touch,
@@ -285,11 +288,16 @@ def phase_wkernels(counters_reset, counts):
         ids_all = ids.repeat(it)
         lms = bw.call_ms(lambda: x["leaf"].index_select(0, ids_all), dev)
         step_bytes = rows * wk.LANE * 4 * 2          # one step: each row read and written
-        # the call: each distinct row read once, ids, out and checksum written once
+        # the call: every step's rows read (the spec makes each step's gather
+        # real), ids, out and checksum written once; beside it the earlier
+        # count, each distinct row read once
         n_rows = int(torch.unique(ids).numel())
-        bnd = bound(n_rows * wk.LANE * 4 + nbytes(idx, got) + rows * 4, 0)
+        bnd = bound(it * rows * wk.LANE * 4 + nbytes(idx, got) + rows * 4, 0)
+        bnd_distinct = bound(n_rows * wk.LANE * 4 + nbytes(idx, got) + rows * 4, 0)
         rows_out[label] = dict(ms=ms64, kernel_ms=k64, gate_iters=it, ratio=ratio,
                                marginal_ratio=marginal, plain_ms=pms, library_ms=lms, bound=bnd,
+                               bound_distinct_rows_ms=bnd_distinct[0],
+                               bound_share=bnd[0] / k64,
                                err=float((got - ref).abs().max()), checksum_rel_err=cs_err)
         log(f"phase16 K7 {label}: mismatches vs plain {mism}, checksum rel err {cs_err:.3g}; "
             f"call {ms64:.4f} ms ({ms64 / it * 1e3:.3f} us/step) at {it} iters; kernel "
@@ -297,7 +305,9 @@ def phase_wkernels(counters_reset, counts):
             f"{it // 4}, ratio {ratio:.3f}, marginal ratio {marginal:.3f} "
             f"({k64 / it * 1e3:.3f} us/step); "
             f"one step's bytes {step_bytes / HBM_BYTES_PER_S * 1e6:.3f} us; call bound "
-            f"{bnd[0] * 1e3:.3f} us ({n_rows} distinct rows); plain {pms:.3f} ms; "
+            f"{bnd[0] * 1e3:.3f} us ({it} x {rows} rows; the kernel at "
+            f"{bnd[0] / k64:.3f} of it), {bnd_distinct[0] * 1e3:.3f} us counting the "
+            f"{n_rows} distinct rows once; plain {pms:.3f} ms; "
             f"library index_select of the {it}x{rows} rows {lms:.4f} ms "
             f"({lms / it * 1e3:.3f} us/step)")
         assert mism == 0, f"K7 {label} is not bit-exact with its plain version"
@@ -755,6 +765,7 @@ def main():
     sys.path.insert(0, ROOT)
     from hobbyrenderer_tpu_torch import bench_k2k4
     from hobbyrenderer_tpu_torch import bench_k3
+    from hobbyrenderer_tpu_torch import bench_k6
     from hobbyrenderer_tpu_torch import bench_raster
     from hobbyrenderer_tpu_torch import bench_wkernels as bw
     from hobbyrenderer_tpu_torch import kernels
@@ -1274,7 +1285,11 @@ def main():
     assert sum(launches_k6.values()) == 2, launches_k6
     k6_rows = []
     for name, (btab, rays6, t_min) in zip(("gi_bounce", "specular", "camera_control"), cap6):
-        got = tk.closest_hit_blocks(btab, rays6, t_min)
+        runs6 = [tk.closest_hit_blocks(btab, rays6, t_min) for _ in range(3)]
+        got = runs6[0]
+        work6 = {}
+        tk.closest_hit_blocks(btab, rays6, t_min, work=work6)
+        repeat6 = all(torch.equal(a, b) for run in runs6[1:] for a, b in zip(got, run))
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         st6 = {}
         e0.record()
@@ -1303,22 +1318,33 @@ def main():
         bad = int((clean & ~agree & ~ties).sum())
         missed = int((ovf_lane & (btri3 >= 0) & (tri6 < 0)).sum())
         n_ovf6 = int((got[5] > 0.5).sum())
-        bnd = bound(st6["rows"] * btab.shape[1] * 4 + nbytes(rays6, *got),
-                    st6["leaf_lane_rows"] * 4 * tk.MT_OPS + st6["box_tests"] * tk.BOX_OPS)
+        bnd = bench_k6.k6_bound(btab, rays6, got, st6, work6)[:2]
+        bnd_all = bench_k6.k6_bound(btab, rays6, got, st6)[0]
+        C6 = tk.CLUSTER
         k6_rows.append(dict(name=name, blocks=T6, lanes=int(act.sum()), ms=ms, plain_ms=pms,
                             k3_ms=ms3, bound=bnd, err=max(float((g - x).abs().max())
                                                           for g, x in zip(got[:5], ref[:5])),
-                            ovf_blocks=n_ovf6))
-        log(f"phase13 K6 {name} blocks={T6} active lanes={int(act.sum())}: mismatches vs plain "
-            f"(t, tri, u, v, front, ovf) {mism}; overflowed blocks {n_ovf6}/{T6} "
+                            ovf_blocks=n_ovf6, cluster=C6, repeat_equal=repeat6,
+                            bound_all_tests=bnd_all, work=work6))
+        log(f"phase13 K6 {name} blocks={T6} active lanes={int(act.sum())}: cluster {C6} "
+            f"(grid {T6 * C6} CTAs of {tk.PIX // C6} threads; the card holds "
+            f"{tk.max_clusters()} such clusters at once); mismatches vs plain "
+            f"(t, tri, u, v, front, ovf) {mism}; three launches equal {repeat6}; levels "
+            f"{st6['levels']}, slowest block {st6['max_block_rows']} rows "
+            f"({st6['max_block_leaf_rows']} leaf); overflowed blocks {n_ovf6}/{T6} "
             f"({n_ovf6 / T6:.3f}); rows read {st6['rows']} (leaf {st6['leaf_rows']}); hit share "
             f"K6 {float((tri6 >= 0).float().mean()):.4f} "
             f"K3 {float((btri3 >= 0).float().mean()):.4f}; K6 vs K3 ({steps3} steps) on {n_clean} lanes outside overflowed blocks and "
             f"K3-capped lanes: tri agree {int((clean & agree).sum())}, t ties "
             f"{int((clean & ties).sum())}, other {bad}; K3-capped lanes {int(capped3.sum())}; "
             f"hits K6 missed in overflowed blocks {missed}; kernel {ms:.3f} ms, K3 {ms3:.3f} ms, "
-            f"plain {pms:.1f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+            f"plain {pms:.1f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; on the {work6['record_tests']} "
+            f"lane record tests run, {work6['records_culled']} skipped by the warp cull; "
+            f"{bnd_all:.4f} ms counting every leaf-lane record test)")
         assert all(m == 0 for m in mism), f"K6 {name} is not bit-exact with its plain version"
+        assert repeat6, f"K6 {name}: three launches differ"
+        assert work6["record_tests"] + work6["records_culled"] == 4 * st6["leaf_lane_rows"], \
+            (work6, st6["leaf_lane_rows"])
         if bad:         # checked at the end, so that the later phases still report
             late_failures.append(f"K6 {name} disagrees with K3 on {bad} clean lanes")
         k6_rows[-1]["clean"] = n_clean
@@ -1439,7 +1465,8 @@ def main():
         x = wk_rows[variants[0]]          # the script's first variant of the kernel
         keep = ("ms", "kernel_ms", "gate_iters", "ratio", "marginal_ratio", "ratio_64",
                 "marginal_ratio_64", "step_ns", "step_ns_64", "checksum_rel_err", "plain_ms",
-                "library_ms", "library_last_step_ms", "layout")
+                "library_ms", "library_last_step_ms", "layout", "bound_distinct_rows_ms",
+                "bound_share")
         return entry(name, "hobbyrenderer_tpu_torch/csrc/wkernels.cu", replaces, key, x["err"],
                      x["kernel_ms"], x["plain_ms"], x["bound"], main=launches_wk,
                      library_ms=x["library_ms"], iters=64, call_ms=x["ms"],
@@ -1482,6 +1509,8 @@ def main():
               ray_sets={x["name"]: dict(blocks=x["blocks"], lanes=x["lanes"], ms=x["ms"],
                                         plain_ms=x["plain_ms"], k3_ms=x["k3_ms"],
                                         bound_ms=x["bound"][0], overflowed=x["ovf_blocks"],
+                                        cluster=x["cluster"], repeat_equal=x["repeat_equal"],
+                                        bound_all_tests_ms=x["bound_all_tests"], work=x["work"],
                                         lanes_checked_against_k3=x["clean"])
                         for x in k6_rows}),
         wk_entry("leaf_gather", "K7", "scripts/bench_wkernels.py:33",

@@ -60,8 +60,10 @@ _SIGNATURES = {
     "hr_bvh16_walk": (_VP,) * 8 + (_I,) * 5 + (_F, _I, _VP),
     # n_out
     "hr_bvh16_walk_ctas_per_sm": (_VP,),
-    # rays, table, t, tri, u, v, front, ovf, T, N, t_min, stream
-    "hr_closest_hit_blocks": (_VP,) * 8 + (_I, _I, _F, _VP),
+    # rays, table, t, tri, u, v, front, ovf, work, T, N, I, t_min, stream
+    "hr_closest_hit_blocks": (_VP,) * 9 + (_I,) * 3 + (_F, _VP),
+    # n_out
+    "hr_closest_hit_blocks_max_clusters": (_VP,),
     # idx, leaf, buf, out, checksum, rows, iters, n_leaf, stream
     "hr_wk_leaf_gather": (_VP,) * 5 + (_I,) * 3 + (_VP,),
     # idx, tab, out, checksum, iters, Ip, hc, cluster, cols, pitch, smem, stream

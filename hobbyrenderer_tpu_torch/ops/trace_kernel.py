@@ -17,17 +17,22 @@ u, v and front are each the largest over the rows that tie at it.
 
 ``closest_hit_blocks`` launches csrc/closest_blocks.cu for CUDA tensors and
 runs ``closest_hit_blocks_reference`` for CPU tensors; nothing else chooses.
-Both keep the Pallas kernel's visiting order and rounding (every product and
-sum a separate op, IEEE division), so they agree bit for bit. They differ
-from the Pallas kernel only where a lane's t_max exceeds BIG (3e37): there
-the Pallas kernel may take attributes of rows that did not hit; callers cap
-t_max at TMAX_CAP = 1e30 (ops/trace.py)."""
+Both keep the Pallas kernel's rounding (every product and sum a separate op,
+IEEE division), so they agree bit for bit. The kernel runs a level's box
+tests at once under the level's first cur_hi, spreads a block's lanes over
+a cluster of ``CLUSTER`` CTAs and skips only record tests whose h is
+certain to be false (csrc/closest_blocks.cu); it tells leaf rows from
+interior ones by id (rows >= ``_leaf_start``), as ``beam_table`` marks
+them, so the table must be ``beam_table``'s. The three differ where a
+lane's t_max exceeds BIG (3e37), where a hit's t may too: callers cap t_max
+at TMAX_CAP = 1e30 (ops/trace.py)."""
 
 from __future__ import annotations
 
 import torch
 
 from hobbyrenderer_tpu_torch import kernels
+from hobbyrenderer_tpu_torch.ops.beam import _leaf_start
 
 PIX = 1024        # rays per block
 GW = 8            # node rows per group
@@ -42,36 +47,62 @@ MT_OPS = 2 * 9 + 4 * 5 + 3 + 1 + 3 + 1 + 8
 # fp32 operations of one interval child-box test (3 axes of 2 subtractions,
 # 4 products, 6 min/max, 2 selects, 2 products, 2 sums, 3 comparisons)
 BOX_OPS = 3 * 21
+# fp32 operations of the kernel's warp bound of one record (record_may_hit:
+# p and q 30 each, det and t's numerator 16 each, s 6, u's and v's
+# numerators 34 each, 16 comparisons)
+IV_OPS = 2 * 30 + 2 * 16 + 6 + 2 * 34 + 16
+
+CLUSTER = 4       # the kernel's CTAs a block, 256 lanes each (csrc/closest_blocks.cu)
 
 launches = 0      # kernel launches (CPU reference calls are not counted)
 
 
-def closest_hit_blocks(btable, rays, t_min: float = 1e-4):
+def closest_hit_blocks(btable, rays, t_min: float = 1e-4, work: dict = None):
     """rays (T, 8, 1024) f32 [ox oy oz dx dy dz tmax act], btable (N, 128)
     f32 from ``beam_table`` -> (t, tri, u, v, front) (T, 1024) f32 each
-    (t = tmax and tri = -1 on a miss) and the overflow flags (T,) f32."""
+    (t = tmax and tri = -1 on a miss) and the overflow flags (T,) f32.
+    ``work``, if given to a CUDA call, gets the
+    kernel's counts (a host sync): ``record_tests`` (lane record tests it
+    ran), ``records_culled`` (lane record tests its warp cull skipped) and
+    ``record_bounds`` (the cull's record bounds, one a warp and record)."""
     if rays.device.type == "cpu":
         return closest_hit_blocks_reference(btable, rays, t_min)
-    return _closest_hit_blocks_cuda(btable, rays, t_min)
+    return _closest_hit_blocks_cuda(btable, rays, t_min, work)
 
 
-def _closest_hit_blocks_cuda(btable, rays, t_min):
+def _closest_hit_blocks_cuda(btable, rays, t_min, work):
     global launches
     T = rays.shape[0]
     kernels.require(rays, "rays", torch.float32, (T, 8, PIX))
     kernels.require(btable, "btable", torch.float32, (btable.shape[0], 128))
     if btable.device != rays.device:
         raise ValueError("btable and rays must be on the same device")
+    if btable.data_ptr() % 16:
+        raise ValueError("btable must be 16-byte aligned (its rows are copied in bulk)")
     lib = kernels.library()
     outs = [torch.empty((T, PIX), dtype=torch.float32, device=rays.device) for _ in range(5)]
     ovf = torch.empty((T,), dtype=torch.float32, device=rays.device)
+    counts = None if work is None else torch.zeros((3,), dtype=torch.int64, device=rays.device)
+    N = btable.shape[0]
     err = lib.hr_closest_hit_blocks(rays.data_ptr(), btable.data_ptr(),
-                                    *[o.data_ptr() for o in outs], ovf.data_ptr(), T,
-                                    btable.shape[0], float(t_min),
+                                    *[o.data_ptr() for o in outs], ovf.data_ptr(),
+                                    None if counts is None else counts.data_ptr(), T, N,
+                                    _leaf_start(N), float(t_min),
                                     kernels.stream_handle(rays.device))
     kernels.check(err, "hr_closest_hit_blocks")
     launches += 1
+    if counts is not None:
+        work.update(zip(("record_tests", "records_culled", "record_bounds"), counts.tolist()))
     return (*outs, ovf)
+
+
+def max_clusters() -> int:
+    """How many of the kernel's clusters one card holds at once."""
+    import ctypes
+    n = ctypes.c_int(0)
+    kernels.check(kernels.library().hr_closest_hit_blocks_max_clusters(ctypes.byref(n)),
+                  "hr_closest_hit_blocks_max_clusters")
+    return n.value
 
 
 def _beam_bounds(o, d, act):
@@ -164,7 +195,9 @@ def closest_hit_blocks_reference(btable, rays, t_min: float = 1e-4, stats: dict 
     kernel's visiting order and arithmetic. ``stats``, if given, gets the
     work this run's data needed: ``rows`` (block, node row) visits,
     ``leaf_rows``, ``leaf_lane_rows`` (leaf rows times the block's active
-    lanes) and ``box_tests``."""
+    lanes), ``box_tests``, ``levels`` (of the deepest block),
+    ``max_block_rows`` (the rows of the block that reads the most) and
+    ``max_block_leaf_rows``."""
     T = rays.shape[0]
     dev = rays.device
     o, d = rays[:, 0:3], rays[:, 3:6]
@@ -177,7 +210,9 @@ def closest_hit_blocks_reference(btable, rays, t_min: float = 1e-4, stats: dict 
     n_act = act.sum(1)
     frontier = torch.zeros((T, FCAP), dtype=torch.int64, device=dev)
     cnt = (n_act > 0).to(torch.int64)
-    rows_n = leaf_n = leaf_lanes = box_n = 0
+    rows_n = leaf_n = leaf_lanes = box_n = levels = 0
+    rows_blk = torch.zeros(T, dtype=torch.int64, device=dev)
+    leaf_blk = torch.zeros(T, dtype=torch.int64, device=dev)
     rowi = torch.arange(GW, device=dev)
     chi = torch.arange(4, device=dev)
     tix = torch.arange(T, device=dev)
@@ -185,6 +220,7 @@ def closest_hit_blocks_reference(btable, rays, t_min: float = 1e-4, stats: dict 
         n_groups = int((cnt.max() + GW - 1) // GW)      # one host read per level
         if n_groups == 0:
             break
+        levels += 1
         nxt = torch.zeros_like(frontier)
         cnt_nxt = torch.zeros_like(cnt)
         for g in range(n_groups):
@@ -205,12 +241,16 @@ def closest_hit_blocks_reference(btable, rays, t_min: float = 1e-4, stats: dict 
             _leaf_fold(B, isleaf, rays, best, t_min)
             if stats is not None:
                 rows_n += rem.sum()
+                rows_blk += rem
                 nl = isleaf.sum(1)
+                leaf_blk += nl
                 leaf_n += nl.sum()
                 leaf_lanes += (nl * n_act).sum()
                 box_n += 4 * (rowok & ~isleaf).sum()
         frontier, cnt = nxt, cnt_nxt
     if stats is not None:
         stats.update(rows=int(rows_n), leaf_rows=int(leaf_n), leaf_lane_rows=int(leaf_lanes),
-                     box_tests=int(box_n))
+                     box_tests=int(box_n), levels=levels,
+                     max_block_rows=int(rows_blk.max()) if T else 0,
+                     max_block_leaf_rows=int(leaf_blk.max()) if T else 0)
     return (*best, ovf.to(torch.float32))
