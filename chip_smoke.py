@@ -27,6 +27,14 @@ full-width closest-hit and compacted NEE walks held against the plain K3
 walk, phase 18), and ROADMAP item 18: the port's PT references (each
 reference's first compacted 16-spp frame rendered twice, bit-identical)
 against the port's flagship under tests/test_golden.py's gates (phase 19).
+Between phases 15 and 16 run the IBL frame with ReSTIR DI on ReGIR onion
+cells and the combined indirect mode (SHARC plus a traced half-res bounce
+that reads the cache), 8 frames at 1920x1080 as the main path (phase 20:
+the JAX graph's passes, K1-K4 every frame, a finite HDR, SHARC's occupied
+slots never shrinking), K2 on its first frame's 1,080-cell table (phase
+21), its second frame's SHARC update twice on the card and once on the
+CPU (phase 22), and three new configurations CUDA against CPU at 256x192
+(phase 23).
 Any failed check raises: the script then exits nonzero without its final
 line.
 
@@ -51,7 +59,7 @@ walk replayed in plain PyTorch on every lane). K3, which hands rays out
 through an atomic queue, is launched three times on each walk of phases 7
 and 18, K4, which hands out tile parts through one, on each of phase 3's
 four calls (the simple frame's SunShadow call and the first flagship
-frame's RTXDI and RTXDIGI calls), K2 on phase 6's call, K6 (a block's
+frame's RTXDI and RTXDIGI calls), K2 on phases 6's and 21's calls, K6 (a block's
 lanes over a thread-block cluster) on phase 13's three calls, and K1 and K5,
 which hand out work units through one, on every captured call of phases 2
 and 10: each must give the same bits each time.
@@ -757,6 +765,186 @@ def phase_golden(Renderer, Config, frames=24, spp=(192, 96)):
     return out
 
 
+IBL_COMBINED_PASSES = ["Culling", "Raster", "HZBBuild", "RasterPhase2", "ResolveGBuffer",
+                       "MaskedLayer", "IBL", "RTXDI", "Denoise", "SHARC", "SharcIndirectQuery",
+                       "SpecularIndirect", "DeferredLighting", "Sky", "Transparent", "TAA",
+                       "AutoExposure", "Bloom", "Tonemap"]
+# the K3 walks a frame of the IBL + combined path reports: (name, lanes key, capped key)
+IBL_COMBINED_WALKS = [(w, f"rt_k3_lanes_{w}", f"rt_k3_capped_{w}")
+                      for w in ("di", "sharc", "sharc_nee", "sharcq", "sharcq_nee", "spec",
+                                "spec_nee")]
+SHARC_RAD_RTOL = 1e-6    # CUDA against CPU: the same elementwise f32 operations in one order
+
+
+def phase_ibl_combined(Renderer, Config, reset_counts, counts, time_passes, median_ms, rko,
+                       card, n_frames, scene="stress", W=1920, H=1080):
+    """Phase 20: the slice's main path, Renderer(Config(scene="stress",
+    1920x1080, mode="ibl", direct_mode="restir", indirect_mode="combined",
+    regir=True, regir_mode="onion"), device="cuda") for n_frames frames:
+    the JAX graph's passes, K1-K4 launched every frame (K5, K6 never), a
+    finite HDR, SHARC's occupied slots nonzero after frame 1 and never
+    fewer. RTXDI and Denoise run under set_sync_debug_mode("error"); the
+    host syncs of SHARC, SharcIndirectQuery and SpecularIndirect are
+    counted, and the two SHARC passes must have none. Captures the first frame's K2 call and the second frame's
+    sharc_update inputs."""
+    from hobbyrenderer_tpu_torch.ops import sharc as sharcops
+    cap = {}
+    k2_orig, upd_orig = rko.restir_candidates, sharcops.sharc_update
+
+    def k2_spy(*a, **kw):
+        cap.setdefault("k2", (a, kw))
+        return k2_orig(*a, **kw)
+
+    def upd_spy(*a):
+        cap.setdefault("updates", []).append(a)
+        return upd_orig(*a)
+
+    t0 = time.perf_counter()
+    r = Renderer(Config(scene=scene, width=W, height=H, mode="ibl",
+                        direct_mode="restir", indirect_mode="combined", regir=True,
+                        regir_mode="onion",
+                        cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_ibl_main")),
+                 device="cuda")
+    setup_s = time.perf_counter() - t0
+    r._model.keep = ("hdr",)
+    syncs = {}
+    events = time_passes(r.graph, strict=("RTXDI", "Denoise"),
+                         watch=("SHARC", "SharcIndirectQuery", "SpecularIndirect"), syncs=syncs)
+    rko.restir_candidates, sharcops.sharc_update = k2_spy, upd_spy
+    try:
+        reset_counts()
+        frame_ms, stats, per_frame, occupied, finite = [], [], [], [], True
+        for _ in range(n_frames):
+            c0 = counts()
+            f0 = time.perf_counter()
+            r.render_frame()
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - f0) * 1e3)
+            per_frame.append({k: v - c0[k] for k, v in counts().items()})
+            stats.append(r.stats())
+            occupied.append(int((r._model.state["sharc_cache"].key != 0).sum()))
+            finite = finite and bool(torch.isfinite(r._model.last_resources["hdr"]).all())
+        launches = counts()
+    finally:
+        rko.restir_candidates, sharcops.sharc_update = k2_orig, upd_orig
+    ldr = r.last_frame
+    png = os.path.join(tempfile.gettempdir(), "chip_smoke_stress_ibl_combined_1080p.png")
+    r.save_screenshot(png)
+    passes = [p.name for p in r.graph.passes if p.enabled]
+    r.shutdown()
+    pass_ms = {k: median_ms(v) for k, v in events.items()}
+    med = statistics.median(frame_ms[1:])
+    walks = {}
+    for name, lk, ck in IBL_COMBINED_WALKS:
+        lanes, capped = sum(x[lk] for x in stats), sum(x[ck] for x in stats)
+        walks[name] = f"{capped}/{lanes} ({capped / max(lanes, 1):.5f})"
+    log(f"phase20 ibl + restir (ReGIR onion) + combined main path {scene} {W}x{H} "
+        f"x{n_frames} on {card}: setup {setup_s:.1f} s (BVH+beam table+bvh16+light pool "
+        f"{r.bvh_seconds:.1f} s), passes {passes}, frame ms {[round(x, 2) for x in frame_ms]}, "
+        f"median frames 2-{n_frames} {med:.2f} ms, launches {launches}, per frame {per_frame}, "
+        f"SHARC occupied slots per frame {occupied}, K3 capped lanes per walk {walks}, "
+        f"rt_overflow_di per frame {[x['rt_overflow_di'] for x in stats]}, host syncs in "
+        f"SHARC / SharcIndirectQuery / SpecularIndirect over the {n_frames} frames {syncs}; "
+        f"png {png}")
+    log(f"phase20 per-pass stream ms (CUDA events, median of frames 2-{n_frames}): "
+        f"{json.dumps(pass_ms)}")
+    assert tuple(ldr.shape) == (H, W, 3) and ldr.dtype == torch.uint8
+    assert finite, "non-finite HDR"
+    assert passes == IBL_COMBINED_PASSES, passes
+    for i, c in enumerate(per_frame):
+        assert c["K1"] >= 3 and c["K2"] >= 1 and c["K3"] >= 4 and c["K4"] >= 1, (i, c)
+        assert c["K5"] == 0 and c["K6"] == 0, (i, c)
+    assert occupied[0] > 0 and all(b >= a for a, b in zip(occupied, occupied[1:])), occupied
+    assert syncs.get("SHARC", 0) == 0 and syncs.get("SharcIndirectQuery", 0) == 0, syncs
+    assert "k2" in cap and len(cap["updates"]) >= 2, "phase 20 did not reach K2 and SHARC"
+    return dict(launches=launches, k2=cap["k2"], sharc_update=cap["updates"][1])
+
+
+def phase_k2_regir(call, rko, bench_k2k4):
+    """Phase 21: K2 on the first phase-20 frame's RTXDI call, whose tile
+    table is the 1,080 ReGIR onion cells: all five outputs torch.equal to
+    the plain version over three launches; ms (CUDA events, median of 5),
+    plain ms, and bench_k2k4.k2_bound at this T."""
+    a, kw = call
+    flat3, tsel = a[0], a[1]
+    T = flat3.shape[0]
+    got3 = [rko.restir_candidates(*a, **kw) for _ in range(3)]
+    ref = rko.restir_candidates_reference(*a, **kw)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(g, r_) for got in got3 for g, r_ in zip(got, ref))
+    err = max(float((g - r_).abs().max()) for g, r_ in zip(got3[0], ref))
+    ms = cuda_ms(lambda: rko.restir_candidates(*a, **kw))
+    plain_ms = cuda_ms(lambda: rko.restir_candidates_reference(*a, **kw), reps=3)
+    bnd = bench_k2k4.k2_bound(a, got3[0], kw["num_candidates"])
+    cells = int(torch.unique(tsel).numel())
+    drawn = float((ref[0] >= 0).float().mean())
+    log(f"phase21 K2 on the ReGIR onion table T={T} tsel={tuple(tsel.shape)} (cells read "
+        f"{cells}) planes={tuple(a[2].shape)}: five outputs equal to the plain version over "
+        f"three launches {exact}, max|d| {err:.3g}, pixels with a winner {drawn:.3f}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    assert T == 1080, T        # (5 + 10) shells x 12 azimuth x 6 elevation
+    assert exact, "K2 on the ReGIR table is not bit-exact with its plain version"
+    assert drawn > 0.3, drawn
+    return dict(tiles=T, cells_read=cells, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1])
+
+
+def phase_sharc_update(args):
+    """Phase 22: one phase-20 sharc_update (480x270 = 129,600 samples into
+    the 2^20-entry cache, its second frame) twice on the card, which must
+    give the same bits, and once on the CPU: keys and ages equal, radiance
+    within SHARC_RAD_RTOL."""
+    from hobbyrenderer_tpu_torch.ops import sharc as sharcops
+    cache = args[0]
+    c1, c2 = sharcops.sharc_update(*args), sharcops.sharc_update(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(c1, c2))
+    cpu = sharcops.sharc_update(*[type(a)(*(t.cpu() for t in a)) if isinstance(a, tuple)
+                                  else a.cpu() for a in args])
+    keys_eq = torch.equal(c1.key.cpu(), cpu.key)
+    ages_eq = torch.equal(c1.age.cpu(), cpu.age)
+    ref = cpu.radiance
+    rad_err = float(((c1.radiance.cpu() - ref).abs() / ref.abs().clamp(min=1e-30)).max())
+    bits_eq = torch.equal(c1.radiance.cpu(), ref)
+    ms = cuda_ms(lambda: sharcops.sharc_update(*args))
+    log(f"phase22 sharc_update samples={args[1].shape[0]} (valid {int(args[4].sum())}) into "
+        f"{cache.key.shape[0]} entries ({int((cache.key != 0).sum())} occupied before, "
+        f"{int((c1.key != 0).sum())} after): two CUDA runs torch.equal {same}; against the CPU "
+        f"keys equal {keys_eq}, ages equal {ages_eq}, radiance max rel err {rad_err:.3g} (bits "
+        f"equal {bits_eq}); {ms:.3f} ms on the card (CUDA events, median of 5)")
+    assert same, "sharc_update gave other bits on a second run"
+    assert keys_eq and ages_eq, "sharc_update's keys or ages differ between CUDA and the CPU"
+    assert rad_err <= SHARC_RAD_RTOL, rad_err
+
+
+def phase_new_configs_cuda_vs_cpu(Renderer, Config, W=256, H=192, frames=3):
+    """Phase 23: stress:4 at 256x192, 3 frames, CUDA (kernels) against the
+    CPU (plain versions), for (ibl, restir, combined, ReGIR onion),
+    (normal, restir, sharc) and (normal, simple, ddgi): >= 99% of LDR pixels
+    within 2/255, phase 14's gate."""
+    for name, kw in (("ibl+restir+combined+regir", dict(mode="ibl", direct_mode="restir",
+                                                        indirect_mode="combined", regir=True,
+                                                        regir_mode="onion")),
+                     ("normal+restir+sharc", dict(direct_mode="restir", indirect_mode="sharc")),
+                     ("normal+simple+ddgi", dict(indirect_mode="ddgi"))):
+        cfg = Config(scene="stress:4", width=W, height=H,
+                     cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke4new"), **kw)
+        t0 = time.perf_counter()
+        rg = Renderer(cfg, device="cuda")
+        rc = Renderer(cfg, device="cpu")
+        for _ in range(frames):
+            lg = rg.render_frame().cpu().numpy()
+            lc = rc.render_frame().numpy()
+        rg.shutdown()
+        rc.shutdown()
+        diff = np.abs(lg.astype(np.int32) - lc.astype(np.int32)).max(-1)
+        within = float(np.mean(diff <= 2))
+        log(f"phase23 {name} stress:4 {W}x{H} x{frames} frames cuda vs cpu: "
+            f"{within * 100:.3f}% of LDR pixels within 2/255, mean |d| {float(diff.mean()):.4f}, "
+            f"max {int(diff.max())} ({time.perf_counter() - t0:.1f} s)")
+        assert within >= 0.99, (name, within)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs "
@@ -1435,6 +1623,23 @@ def main():
     assert stats_fl[-1]["gi_traced_frames"] == n_frames // 2
     del r, hdr, ldr
 
+    # ---- phase 20: the IBL + ReSTIR DI (ReGIR onion) + combined main path --
+    # the first frame's K2 call (phase 21) and the second frame's SHARC
+    # update (phase 22) are captured on the way
+    ib = phase_ibl_combined(Renderer, Config, reset_counts, counts, time_passes, median_ms,
+                            rko, smi.stdout.strip().splitlines()[0], n_frames)
+    launches_ib = ib["launches"]
+
+    # ---- phase 21: K2 on the ReGIR cell table (T = 1,080) ------------------
+    k2_regir = phase_k2_regir(ib["k2"], rko, bench_k2k4)
+
+    # ---- phase 22: SHARC's update on the card: the same bits twice, the CPU
+    phase_sharc_update(ib["sharc_update"])
+    del ib
+
+    # ---- phase 23: the new configurations, CUDA against CPU at 256x192 ----
+    phase_new_configs_cuda_vs_cpu(Renderer, Config)
+
     # ---- phases 16-19: the step microbenchmarks K7-K9, the path tracer -----
     launches_wk, wk_rows = phase_wkernels(reset_counts, counts)
     phase_pt_cuda_vs_cpu(Renderer, Config)
@@ -1457,8 +1662,10 @@ def main():
                     launches_simple_path=launches[key], launches_restir_path=launches_rx[key],
                     launches_normal_basic=launches_nb[key],
                     launches_flagship_path=launches_fl[key],
-                    launches_flagship_k6_route=launches_k6[key], launches_pt=launches_pt[key],
-                    launches_bench_wkernels=launches_wk[key], **extra)
+                    launches_flagship_k6_route=launches_k6[key],
+                    launches_ibl_combined_regir_path=launches_ib[key],
+                    launches_pt=launches_pt[key], launches_bench_wkernels=launches_wk[key],
+                    **extra)
 
     def wk_entry(name, key, replaces, variants):
         # ms: the kernel's own device time (CUPTI); call_ms adds the launch
@@ -1483,7 +1690,7 @@ def main():
         entry("restir_candidates", "hobbyrenderer_tpu_torch/csrc/restir_candidates.cu",
               "hobbyrenderer_tpu/ops/restir_pallas.py:65", "K2", k2_err, k2_ms, k2_plain_ms,
               k2_bound, issue_ms=k2_issue_ms, issue_clock_mhz=clock_mhz,
-              sass_per_candidate=k2_sass.get("per_candidate")),
+              sass_per_candidate=k2_sass.get("per_candidate"), regir_table=k2_regir),
         entry("bvh16_walk", "hobbyrenderer_tpu_torch/csrc/bvh16_walk.cu",
               "hobbyrenderer_tpu/ops/wtrace.py:71", "K3", k3_main["err"], k3_main["ms"],
               k3_main["plain_ms"], k3_main["bound"], rays=k3_main["rays"],

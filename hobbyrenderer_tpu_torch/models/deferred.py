@@ -1,5 +1,5 @@
-"""Deferred rendering, the Normal and NormalBasic modes (counterpart of
-hobbyrenderer_tpu/models/deferred.py). Normal mode with simple direct
+"""Deferred rendering, the Normal, IBL and NormalBasic modes (counterpart
+of hobbyrenderer_tpu/models/deferred.py). Normal mode with simple direct
 lighting (the default) runs 15 passes on the stress scene:
 
 Culling -> Raster -> HZBBuild -> RasterPhase2 -> ResolveGBuffer ->
@@ -19,17 +19,29 @@ MaskedLayer -> IBL -> RTXDI -> RTXDIGI -> Denoise -> SpecularIndirect ->
 DeferredLighting -> Sky -> Transparent -> TAA -> AutoExposure -> Bloom ->
 Tonemap.
 
-NormalBasic replaces SunShadow with ShadowCSM (cascaded shadow maps times
-screen-space contact shadows, ops/csm.py and ops/sss.py) and ignores
-``direct_mode``; its ``indirect_mode`` adds DDGI (ops/ddgi.py) or SSGI
-(ops/ssgi.py) before DeferredLighting.
+``indirect_mode`` "sharc" adds SHARC (the world-space radiance cache,
+ops/sharc.py: a quarter-res bounce updates it, a full-res query reads it),
+"combined" adds SharcIndirectQuery after it (a traced half-res bounce whose
+hit reads the cache, denoised and upsampled, in place of the full-res
+query); "ddgi" and "ssgi" add DDGI (ops/ddgi.py) or SSGI (ops/ssgi.py) in
+every mode. SpecularIndirect runs with any of restir, sharc, ddgi and
+combined. ``regir`` makes RTXDI draw its candidates from a per-frame ReGIR
+cell table (ops/regir.py) instead of the presample tiles.
+
+The IBL mode is the Normal graph with the IBL ambient doubled (in
+DeferredLighting and Transparent). NormalBasic replaces SunShadow with
+ShadowCSM (cascaded shadow maps times screen-space contact shadows,
+ops/csm.py and ops/sss.py) and runs none of the ray-traced lighting passes
+(RTXDI, RTXDIGI, SHARC, SpecularIndirect). ``pass_gates`` holds these
+rules, the JAX package's.
 
 Raster passes go through the tile-raster kernel K1 (ops/raster_kernel.py),
 the shadow atlas through its depth-only sibling K5, SunShadow, the RTXDI
 winner rays and the GI sample visibility through the any-hit kernel K4
 (ops/beam.py), RTXDI's candidates through the candidate kernel K2
 (ops/restir_kernel.py), and its straggler rays, the DDGI probe rays, the
-GI bounce and reflection rays and every NEE ray through the bvh16 walk K3
+GI and SHARC bounce rays, the reflection rays and every NEE ray through the
+bvh16 walk K3
 (ops/bvh16.py), as on the JAX package's TPU default. The sorted-block
 closest-hit kernel K6 (ops/trace_kernel.py) is the route that
 ``closest_hit_auto(..., force_kernel=True)`` takes; no pass asks for it."""
@@ -53,28 +65,39 @@ from hobbyrenderer_tpu_torch.ops import hzb as hzbops
 from hobbyrenderer_tpu_torch.ops import ibl as iblops
 from hobbyrenderer_tpu_torch.ops import post as postops
 from hobbyrenderer_tpu_torch.ops import raster as rasterops
+from hobbyrenderer_tpu_torch.ops import regir as regirops
 from hobbyrenderer_tpu_torch.ops import restir as restirops
 from hobbyrenderer_tpu_torch.ops import restir_gi as giops
 from hobbyrenderer_tpu_torch.ops import sampling as smp
 from hobbyrenderer_tpu_torch.ops import shading as shadeops
+from hobbyrenderer_tpu_torch.ops import sharc as sharcops
 from hobbyrenderer_tpu_torch.ops import specular as specops
 from hobbyrenderer_tpu_torch.ops import sky as skyops
 from hobbyrenderer_tpu_torch.ops import ssgi as ssgiops
 from hobbyrenderer_tpu_torch.ops import sss as sssops
 from hobbyrenderer_tpu_torch.ops import taa as taaops
+from hobbyrenderer_tpu_torch.ops import trace as traceops
 from hobbyrenderer_tpu_torch.ops import transparent as transops
+from hobbyrenderer_tpu_torch.ops.intersect import offset_ray_origin
 from hobbyrenderer_tpu_torch.ops.resize import resize_bilinear
 from hobbyrenderer_tpu_torch.ops.upsample import joint_bilateral_upsample
+from hobbyrenderer_tpu_torch.ops.restir_gi import _hit_radiance
 from hobbyrenderer_tpu_torch.ops.restir_presets import get_preset
 from hobbyrenderer_tpu_torch.utils.rng import pcg3d, uniform_from_bits
 
 GI_SCALE = 4           # ReSTIR GI grid divisor
 GI_TRACE_STEPS = 512   # the bounce rays' 4-ary step budget (K3: 128 steps)
+SHARC_TRACE_STEPS = 512   # the SHARC bounces' 4-ary step budget (K3: 128 steps)
 # the GI and specular counters of Renderer.stats(), per frame (device scalars)
 GI_STATS = ("rt_overflow_gi", "rt_k3_lanes_gi", "rt_k3_capped_gi", "rt_k3_lanes_gi_nee",
             "rt_k3_capped_gi_nee")
 SPEC_STATS = ("rt_k3_lanes_spec", "rt_k3_capped_spec", "rt_k3_lanes_spec_nee",
               "rt_k3_capped_spec_nee", "spec_past_cap")
+# the SHARC update's and the combined mode's traced query's K3 walks
+SHARC_STATS = ("rt_k3_lanes_sharc", "rt_k3_capped_sharc", "rt_k3_lanes_sharc_nee",
+               "rt_k3_capped_sharc_nee")
+SHARCQ_STATS = ("rt_k3_lanes_sharcq", "rt_k3_capped_sharcq", "rt_k3_lanes_sharcq_nee",
+                "rt_k3_capped_sharcq_nee")
 
 
 def _scene_sun_dir(ctx):
@@ -84,6 +107,26 @@ def _scene_sun_dir(ctx):
         return ctx.gpu.light_dir[m["sun_index"]]
     return torch.tensor(ctx.settings.sun_direction, dtype=torch.float32,
                         device=ctx.gpu.device)
+
+
+def pass_gates(mode: str, direct_mode: str, indirect_mode: str, specular_indirect: bool,
+               with_rt_shadows: bool) -> Dict[str, bool]:
+    """Which of the optional passes run (the JAX package's rules,
+    models/deferred.py:317-321, 416-417, 470-472, 612, 654, 695-699).
+    ``with_rt_shadows``: the frame has a ray-tracing scene."""
+    traced = mode in (RenderingMode.NORMAL, RenderingMode.IBL)
+    use_restir = direct_mode == "restir" and traced
+    use_sharc = indirect_mode in ("sharc", "combined") and traced
+    return dict(
+        use_restir=use_restir,
+        use_sun_shadow=with_rt_shadows and traced and not use_restir,
+        use_restir_gi=indirect_mode == "restir" and traced,
+        use_sharc=use_sharc,
+        use_sharc_traced=use_sharc and indirect_mode == "combined",
+        use_ddgi=indirect_mode == "ddgi",
+        use_ssgi=indirect_mode == "ssgi",
+        use_spec=(specular_indirect and with_rt_shadows and traced
+                  and indirect_mode in ("restir", "sharc", "ddgi", "combined")))
 
 
 def build_deferred_graph(width: int, height: int, visible_capacity: int,
@@ -96,13 +139,16 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
                          indirect_mode: str = "none",
                          restir_quality: str = "balanced",
                          denoiser_profile: str = "relax",
-                         specular_indirect: bool = False) -> RenderGraph:
+                         specular_indirect: bool = False, with_rt_shadows: bool = True,
+                         regir: bool = False, regir_mode: str = "onion",
+                         scene_bounds=None) -> RenderGraph:
     g = RenderGraph()
-    use_restir = direct_mode == "restir" and mode == RenderingMode.NORMAL
-    use_restir_gi = indirect_mode == "restir" and mode == RenderingMode.NORMAL
-    use_spec = specular_indirect and use_restir_gi
-    use_ddgi = indirect_mode == "ddgi"
-    use_ssgi = indirect_mode == "ssgi"
+    gates = pass_gates(mode, direct_mode, indirect_mode, specular_indirect, with_rt_shadows)
+    use_restir, use_restir_gi = gates["use_restir"], gates["use_restir_gi"]
+    use_sharc, use_sharc_traced = gates["use_sharc"], gates["use_sharc_traced"]
+    use_spec, use_ddgi, use_ssgi = gates["use_spec"], gates["use_ddgi"], gates["use_ssgi"]
+    # IBL mode: the IBL-dominant ambient (DeferredLighting and Transparent)
+    ibl_mult = 2.0 if mode == RenderingMode.IBL else 1.0
     rq = get_preset(restir_quality)
     masked_capacity = max(masked_capacity or visible_capacity, 1)
     transparent_capacity = max(transparent_capacity or visible_capacity, 1)
@@ -246,7 +292,7 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
             vis = resize_bilinear(vis, height, width)
         res["sun_shadow"] = vis
 
-    if use_restir or mode != RenderingMode.NORMAL:
+    if not gates["use_sun_shadow"]:
         g.get("SunShadow").enabled = False
 
     @g.add
@@ -283,13 +329,22 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
                          "rt_k3_lanes_di", "rt_k3_capped_di"),
                  persistent=("restir_reservoir",))
     def _rtxdi(ctx, res):
-        """ReSTIR DI chain: candidates, temporal and spatial reuse, one
-        visibility ray per winner."""
+        """ReSTIR DI chain: candidates (from the presample tiles, or with
+        ``regir`` from this frame's ReGIR cells), temporal and spatial
+        reuse, one visibility ray per winner."""
+        grid = None
+        if regir:
+            if regir_mode == "onion":
+                grid = regirops.build_regir_onion(ctx.rt.lights, ctx.vc["camera_pos"],
+                                                  scene_radius, ctx.vc["frame_index"])
+            else:
+                grid = regirops.build_regir_grid(ctx.rt.lights, scene_bounds[0],
+                                                 scene_bounds[1], ctx.vc["frame_index"])
         so = {}
         direct, new_res = restirops.restir_di(
             ctx.gpu, ctx.rt, res["gbuffer"], ctx.vc, ctx.settings,
             res["restir_reservoir"], ctx.vc["frame_index"], visibility=True,
-            stats_out=so, num_candidates=rq.di_candidates,
+            regir_grid=grid, stats_out=so, num_candidates=rq.di_candidates,
             spatial_taps=rq.di_spatial_taps, boiling_mult=rq.di_boiling_mult,
             checkerboard=rq.di_checkerboard, vis_scale=rq.di_vis_scale)
         res["restir_direct"] = direct
@@ -338,6 +393,108 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
 
     if not use_restir:
         g.get("Denoise").enabled = False
+
+    def bounce_rays(gb, s: int, salt: int, frame: int, settings):
+        """One cosine-distributed bounce ray per (s x s)-subsampled pixel:
+        the (sh, sw) subsampler and the grid's points, normals, albedo,
+        valid mask, lane ids, origins and directions."""
+        sh, sw = height // s, width // s
+
+        def sub(img):
+            return img[::s, ::s][:sh, :sw]
+        pos = sub(gb.world_pos).reshape(-1, 3)
+        nrm = sub(gb.normal).reshape(-1, 3)
+        gn = sub(gb.geo_normal).reshape(-1, 3)
+        pix = torch.arange(pos.shape[0], dtype=torch.int64, device=pos.device)
+        bits = pcg3d(torch.stack([pix, torch.full_like(pix, frame),
+                                  torch.full_like(pix, salt)], -1))
+        d = smp.to_world(nrm, smp.cosine_sample_hemisphere(uniform_from_bits(bits[..., 0]),
+                                                           uniform_from_bits(bits[..., 1])))
+        o = offset_ray_origin(pos, gn, d) + gn * settings.shadow_bias
+        return (sub, pos, nrm, sub(gb.albedo).reshape(-1, 3), sub(gb.valid).reshape(-1), pix,
+                o, d)
+
+    def traced_bounce(ctx, res, o, d, val, pix, skip_pool_emissive, names):
+        """Closest hits of the bounce rays (K3 under SHARC_TRACE_STEPS) and
+        the outgoing radiance at each hit (emission, one NEE sample, sky
+        exitance); the walks' lanes and capped lanes go to the resources
+        ``names``."""
+        hit, so = traceops.closest_hit_counted(ctx.rt, o, d, val,
+                                               max_steps=SHARC_TRACE_STEPS)
+        nee = {}
+        hpos, hn, h_rad = _hit_radiance(
+            ctx.gpu, ctx.rt, ctx.rt.lights, hit, o, d, pix, ctx.vc["frame_index"],
+            stats_out=nee, skip_pool_emissive=skip_pool_emissive,
+            sky_sh=res["sky_irradiance"],
+            ibl_scale=ctx.settings.ibl_intensity * ctx.settings.ambient_scale)
+        for name, v in zip(names, (so["lanes"], so["capped"], nee["k3_lanes"],
+                                   nee["k3_capped"])):
+            res[name] = v
+        return hit, hpos, hn, h_rad
+
+    @g.add
+    @render_pass("SHARC", reads=("gbuffer", "sharc_cache", "sky_irradiance"),
+                 writes=("sharc_cache", "sharc_indirect") + SHARC_STATS,
+                 persistent=("sharc_cache",))
+    def _sharc(ctx, res):
+        """SHARC radiance cache: a quarter-res cosine bounce updates it (the
+        hit's emission, one NEE sample and sky exitance, plus the cache's
+        own value at the hit's cell: one more bounce a frame), then the
+        resolve (aging, eviction) and a full-res query."""
+        gb = res["gbuffer"]
+        cache = res["sharc_cache"]
+        cam = ctx.vc["camera_pos"]
+        _, pos, nrm, alb, val, pix, o, d = bounce_rays(gb, 4, 55, ctx.vc["frame_index"],
+                                                       ctx.settings)
+        hit, hpos, hn, h_rad = traced_bounce(ctx, res, o, d, val, pix + 0x5A4C, False,
+                                             SHARC_STATS)
+        fb, fb_hit = sharcops.sharc_query(cache, hpos, hn, cam)
+        # cosine-sampled bounce: albedo * L estimates irradiance / pi; a miss
+        # adds nothing (the IBL ambient covers the sky)
+        sample = torch.where((hit.tri < 0)[..., None], 0.0,
+                             alb * (h_rad + torch.where(fb_hit[..., None], fb, 0.0)))
+        cache = sharcops.sharc_resolve(sharcops.sharc_update(cache, pos, nrm, sample, val, cam))
+        res["sharc_cache"] = cache
+        ind, _ = sharcops.sharc_query(cache, gb.world_pos.reshape(-1, 3),
+                                      gb.normal.reshape(-1, 3), cam)
+        res["sharc_indirect"] = ind.reshape(height, width, 3)
+
+    if not use_sharc:
+        g.get("SHARC").enabled = False
+
+    @g.add
+    @render_pass("SharcIndirectQuery",
+                 reads=("gbuffer", "sharc_cache", "sky_irradiance", "sharc_q_state"),
+                 writes=("sharc_indirect", "sharc_q_state") + SHARCQ_STATS,
+                 persistent=("sharc_q_state",))
+    def _sharc_query_traced(ctx, res):
+        """The combined mode's indirect: one cosine bounce a half-res pixel
+        whose hit adds its emission, NEE sample and sky exitance to the
+        resolved cache's value at the hit's cell; demodulated by albedo,
+        RELAX temporal + a 2-step A-trous at the half-res grid, then a
+        depth/normal-guided upsample and the full-res albedo."""
+        gb = res["gbuffer"]
+        s = 2
+        sub, _, _, _, val, pix, o, d = bounce_rays(gb, s, 77, ctx.vc["frame_index"],
+                                                   ctx.settings)
+        hit, hpos, hn, h_rad = traced_bounce(ctx, res, o, d, val, pix + 0xC0B1, use_restir,
+                                             SHARCQ_STATS)
+        fb, fb_ok = sharcops.sharc_query(res["sharc_cache"], hpos, hn, ctx.vc["camera_pos"])
+        hit_ok = hit.tri >= 0
+        rad = h_rad + torch.where((fb_ok & hit_ok)[..., None], fb, 0.0)
+        irr = torch.where((val & hit_ok)[..., None], rad, 0.0).reshape(height // s,
+                                                                        width // s, 3)
+        sgb = specops._SubGB(motion=sub(gb.motion) / float(s), depth=sub(gb.depth),
+                             normal=sub(gb.normal), valid=sub(gb.valid))
+        color, var, st = dnops.temporal_accumulate(irr, sgb, res["sharc_q_state"])
+        color = dnops.atrous_filter(color, var, sgb, iterations=2)
+        full_irr = joint_bilateral_upsample(color, sgb.depth, sgb.normal, sgb.valid, gb.depth,
+                                            gb.normal, s)
+        res["sharc_indirect"] = torch.where(gb.valid[..., None], gb.albedo * full_irr, 0.0)
+        res["sharc_q_state"] = st
+
+    if not use_sharc_traced:
+        g.get("SharcIndirectQuery").enabled = False
 
     @g.add
     @render_pass("DDGI", reads=("gbuffer", "ddgi_volume"),
@@ -391,7 +548,8 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         g.get("SSGI").enabled = False
 
     @g.add
-    @render_pass("SpecularIndirect", reads=("gbuffer", "spec_state", "sky_irradiance"),
+    @render_pass("SpecularIndirect", reads=("gbuffer", "spec_state", "sky_irradiance")
+                 + (("sharc_cache",) if use_sharc else ()),
                  writes=("spec_indirect", "spec_weight", "spec_state") + SPEC_STATS,
                  persistent=("spec_state",))
     def _spec_indirect(ctx, res):
@@ -401,6 +559,7 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         spec, w_blend, st = specops.specular_indirect(
             ctx.gpu, ctx.rt, res["gbuffer"], ctx.vc, ctx.settings, res["spec_state"],
             ctx.vc["frame_index"], sun_dir=_scene_sun_dir(ctx),
+            sharc_cache=res["sharc_cache"] if use_sharc else None,
             skip_pool_emissive=use_restir, sky_sh=res["sky_irradiance"],
             ibl_scale=ctx.settings.ibl_intensity * ctx.settings.ambient_scale,
             half_rate=rq.spec_half_rate, stats_out=so)
@@ -419,6 +578,7 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
                  reads=("gbuffer", "sky_irradiance")
                  + (("restir_direct",) if use_restir else ("sun_shadow",))
                  + (("spec_indirect", "spec_weight") if use_spec else ())
+                 + (("sharc_indirect",) if use_sharc else ())
                  + (("ddgi_indirect",) if use_ddgi else ())
                  + (("ssgi_indirect",) if use_ssgi else ())
                  + (("restir_indirect",) if use_restir_gi else ()),
@@ -439,7 +599,7 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
             direct = shadeops.shade_all_lights(ctx.gpu, gb.world_pos, gb.normal, v,
                                                gb.albedo, metal, rough,
                                                shadow_fn=shadow_fn)
-        ibl_scale = ctx.settings.ibl_intensity * ctx.settings.ambient_scale
+        ibl_scale = ctx.settings.ibl_intensity * ctx.settings.ambient_scale * ibl_mult
         ambient = iblops.ibl_ambient(res["sky_irradiance"], gb.normal, v, gb.albedo,
                                      metal, rough, _scene_sun_dir(ctx), ctx.settings,
                                      intensity=ibl_scale,
@@ -447,6 +607,8 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         hdr = direct + ambient + gb.emissive
         if use_spec:
             hdr = hdr + res["spec_indirect"]
+        if use_sharc:
+            hdr = hdr + res["sharc_indirect"]
         if use_ssgi:
             hdr = hdr + res["ssgi_indirect"]
         if use_restir_gi:
@@ -473,7 +635,7 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
             width=width, height=height,
             transparent_capacity=transparent_capacity,
             sun_dir=_scene_sun_dir(ctx), sky_sh=res["sky_irradiance"],
-            ibl_scale=ctx.settings.ibl_intensity * ctx.settings.ambient_scale)
+            ibl_scale=ctx.settings.ibl_intensity * ctx.settings.ambient_scale * ibl_mult)
 
     if not has_transparent:
         g.get("Transparent").enabled = False
@@ -517,9 +679,11 @@ def initial_frame_state(width: int, height: int, device, use_restir: bool = Fals
                         indirect_mode: str = "none", scene_bounds=None,
                         specular_indirect: bool = False) -> Dict[str, object]:
     """Persistent resources seed: exposure, HZB, TAA history; under ReSTIR
-    the light reservoirs and the denoiser history; the SSGI denoiser
-    history, the DDGI volume (fitted to ``scene_bounds``), or the GI
-    reservoirs and the specular denoiser history."""
+    the light reservoirs and the denoiser history; per ``indirect_mode`` the
+    SHARC cache (and for "combined" its half-res denoiser history), the SSGI
+    denoiser history, the DDGI volume (fitted to ``scene_bounds``) or the GI
+    reservoirs; the specular denoiser history where SpecularIndirect can
+    run (the JAX package's initial_frame_state)."""
     h0, w0, levels = hzbops.hzb_sizes(width, height)
     state = {
         "exposure": torch.tensor(1.0, dtype=torch.float32, device=device),
@@ -531,6 +695,10 @@ def initial_frame_state(width: int, height: int, device, use_restir: bool = Fals
     if use_restir:
         state["restir_reservoir"] = restirops.reservoir_init(height, width, device)
         state["denoise_state"] = dnops.denoise_init(height, width, device)
+    if indirect_mode in ("sharc", "combined"):
+        state["sharc_cache"] = sharcops.sharc_init(device)
+    if indirect_mode == "combined":
+        state["sharc_q_state"] = dnops.denoise_init(height // 2, width // 2, device)
     if indirect_mode == "ssgi":
         state["ssgi_state"] = dnops.denoise_init(height, width, device)
     if indirect_mode == "ddgi":
@@ -539,8 +707,8 @@ def initial_frame_state(width: int, height: int, device, use_restir: bool = Fals
     if indirect_mode == "restir":
         state["restir_gi_reservoir"] = giops.gi_reservoir_init(height // GI_SCALE,
                                                                width // GI_SCALE, device)
-        if specular_indirect:
-            state["spec_state"] = specops.spec_state_init(height, width, device)
+    if specular_indirect and indirect_mode in ("restir", "sharc", "ddgi", "combined"):
+        state["spec_state"] = specops.spec_state_init(height, width, device)
     return state
 
 
@@ -550,13 +718,14 @@ class DeferredRenderer:
     def __init__(self, gpu, width: int, height: int, rt, shadow_scale: int,
                  mode: str = RenderingMode.NORMAL, direct_mode: str = "simple",
                  indirect_mode: str = "none", restir_quality: str = "balanced",
-                 denoiser_profile: str = "relax", specular_indirect: bool = False):
+                 denoiser_profile: str = "relax", specular_indirect: bool = False,
+                 regir: bool = False, regir_mode: str = "onion"):
         self.width, self.height = width, height
         self.rt = rt
-        self.use_restir = direct_mode == "restir" and mode == RenderingMode.NORMAL
-        self.use_ddgi = indirect_mode == "ddgi"
-        self.use_restir_gi = indirect_mode == "restir" and mode == RenderingMode.NORMAL
-        self.use_spec = specular_indirect and self.use_restir_gi
+        g = pass_gates(mode, direct_mode, indirect_mode, specular_indirect, rt is not None)
+        self.use_restir, self.use_restir_gi = g["use_restir"], g["use_restir_gi"]
+        self.use_sharc, self.use_sharc_traced = g["use_sharc"], g["use_sharc_traced"]
+        self.use_ddgi, self.use_spec = g["use_ddgi"], g["use_spec"]
         m = gpu.meta
         cap = max(int(gpu.lod0_pair_capacity), 1)
         self.graph = build_deferred_graph(
@@ -569,9 +738,10 @@ class DeferredRenderer:
             shadow_scale=shadow_scale, direct_mode=direct_mode,
             indirect_mode=indirect_mode, restir_quality=restir_quality,
             denoiser_profile=denoiser_profile, scene_radius=m["scene_radius"],
-            specular_indirect=specular_indirect)
+            specular_indirect=specular_indirect, with_rt_shadows=rt is not None,
+            regir=regir, regir_mode=regir_mode, scene_bounds=m["scene_bounds"])
         self.state = initial_frame_state(width, height, gpu.device, self.use_restir,
-                                         indirect_mode, m["scene_bounds"], self.use_spec)
+                                         indirect_mode, m["scene_bounds"], specular_indirect)
         self.last_stats = {}
         self.keep = ()              # extra resource names to keep per frame
         self.last_resources = {}
@@ -592,6 +762,10 @@ class DeferredRenderer:
             outputs += ["ddgi_traced", "rt_k3_lanes_ddgi", "rt_k3_capped_ddgi"]
         if self.use_restir_gi:
             outputs += ["gi_traced", *GI_STATS]
+        if self.use_sharc:
+            outputs += list(SHARC_STATS)
+        if self.use_sharc_traced:
+            outputs += list(SHARCQ_STATS)
         if self.use_spec:
             outputs += list(SPEC_STATS)
         o = self.graph.execute(ctx, self.state, outputs=outputs + list(self.keep))
@@ -622,8 +796,11 @@ class DeferredRenderer:
             self.gi_traced_frames += o["gi_traced"]
             self.last_stats["gi_traced_frames"] = self.gi_traced_frames
             self.last_stats.update({k: o[k] for k in GI_STATS})
-        if self.use_spec:
-            # the reflection and NEE walks, and the glossy lanes past the
-            # compaction capacity (they read the sky)
-            self.last_stats.update({k: o[k] for k in SPEC_STATS})
+        # the SHARC bounces' and their NEE walks' K3 lanes and capped lanes;
+        # the reflection and NEE walks, and the glossy lanes past the
+        # compaction capacity (they read the sky)
+        for use, names in ((self.use_sharc, SHARC_STATS), (self.use_sharc_traced, SHARCQ_STATS),
+                           (self.use_spec, SPEC_STATS)):
+            if use:
+                self.last_stats.update({k: o[k] for k in names})
         return o["ldr"]

@@ -48,7 +48,11 @@ def build_sky_irradiance(sun_dir, settings):
 
 
 def sample_irradiance(sh, n):
-    Y = sh_basis(n) * torch.as_tensor(_BAND, device=n.device)
+    # the bands' cosine-lobe weights go in as scalars: a constant tensor
+    # made here would be a host-to-device copy, which waits for the device
+    Y = sh_basis(n)
+    Y = torch.cat([Y[..., :1] * float(_BAND[0]), Y[..., 1:4] * float(_BAND[1]),
+                   Y[..., 4:] * float(_BAND[4])], -1)
     return torch.einsum("...k,kc->...c", Y, sh)
 
 

@@ -2,13 +2,14 @@
 direct lighting over the polymorphic light pool (counterpart of
 hobbyrenderer_tpu/ops/restir.py, single device).
 
-Per frame: candidates from power-presampled light tiles (kernel K2,
-ops/restir_kernel.py) -> temporal reuse (nearest-texel reprojection) ->
-boiling filter -> spatial reuse with frame-wide tap offsets -> finalize ->
-shade the winner with one visibility ray. Winner visibility follows the JAX
-package's TPU branch on every device: two tile-modal any-hit passes (K4,
-ops/beam.py) and the remaining "straggler" lanes compacted to a fixed
-capacity and walked by K3 (ops/bvh16.py); the reduced-rate path traces the
+Per frame: candidates from power-presampled light tiles or ReGIR cells
+(ops/regir.py) through kernel K2 (ops/restir_kernel.py) -> temporal reuse
+(nearest-texel reprojection) -> boiling filter -> spatial reuse with
+frame-wide tap offsets -> finalize -> shade the winner with one visibility
+ray. Winner visibility follows the JAX package's TPU branch on every
+device: two tile-modal any-hit passes (K4, ops/beam.py) and the remaining
+"straggler" lanes compacted to a fixed capacity and walked by K3
+(ops/bvh16.py); the reduced-rate path traces the
 (::vs, ::vs) subgrid and re-traces mismatched winners through K3.
 
 No step of the chain reads a device value back to the host: compactions
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 from hobbyrenderer_tpu_torch.ops import beam as beamops
 from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
 from hobbyrenderer_tpu_torch.ops import lights as lightops
+from hobbyrenderer_tpu_torch.ops import regir as regirops
 from hobbyrenderer_tpu_torch.ops import restir_kernel as rkops
 from hobbyrenderer_tpu_torch.ops import sampling as smp
 from hobbyrenderer_tpu_torch.ops import shading as shadeops
@@ -212,9 +214,10 @@ def restir_di(gpu, rt, gb, vc, settings, prev: Reservoir, frame_index: int,
     ``straggler_steps=None`` traces winner visibility exactly: every
     straggler and mismatch lane, uncapped, instead of the reference's fixed
     capacities (which bind at thumbnail sizes).
+    ``regir_grid`` (an ops/regir.RegirGrid) replaces the presample tiles:
+    each 128-pixel segment reads the cell that covers its centre pixel, and
+    slot 16 carries the cell reservoir's W in place of 1/power_pdf.
     Returns (direct (H, W, 3), Reservoir)."""
-    if regir_grid is not None:
-        raise NotImplementedError("--regir is not ported yet: ROADMAP Queue 1 slice 7")
     H, W = gb.depth.shape
     R = H * W
     dev = gb.depth.device
@@ -267,18 +270,26 @@ def restir_di(gpu, rt, gb, vc, settings, prev: Reservoir, frame_index: int,
                                              gb.orm, gb.valid)
     Rc = H * Wc
 
-    # ---- presampled candidate tiles + initial candidates (K2) ----
-    tile_rows = lightops.presample_light_rows(pool, frame)        # (T, 128, 18)
+    # ---- presampled candidate tiles (or ReGIR cells) + initial candidates (K2) ----
+    if regir_grid is not None:
+        tile_rows = regir_grid.rows                               # (C, 128, 18)
+    else:
+        tile_rows = lightops.presample_light_rows(pool, frame)    # (T, 128, 18)
     T, S, _ = tile_rows.shape
     nseg = (Wc + S - 1) // S
     Wp = nseg * S
     Hp = -(-H // rkops.ROWS) * rkops.ROWS
-    gy_img = torch.arange(H, dtype=torch.int64, device=dev)
-    seg = torch.arange(nseg, dtype=torch.int64, device=dev)
-    sbits = pcg3d(torch.stack([gy_img[:, None].expand(H, nseg), seg[None, :].expand(H, nseg),
-                               torch.full((H, nseg), frame, dtype=torch.int64, device=dev)],
-                              -1))
-    tsel = (sbits[..., 0] % T).to(torch.int32)
+    if regir_grid is not None:
+        seg_x = torch.clamp(torch.arange(nseg, device=dev) * S + S // 2, max=Wc - 1)
+        tsel = regirops.cells_of_positions(regir_grid, pos_g[:, seg_x], valid_g[:, seg_x])
+    else:
+        gy_img = torch.arange(H, dtype=torch.int64, device=dev)
+        seg = torch.arange(nseg, dtype=torch.int64, device=dev)
+        sbits = pcg3d(torch.stack([gy_img[:, None].expand(H, nseg),
+                                   seg[None, :].expand(H, nseg),
+                                   torch.full((H, nseg), frame, dtype=torch.int64,
+                                              device=dev)], -1))
+        tsel = (sbits[..., 0] % T).to(torch.int32)
     planes = torch.cat([pos_g.permute(2, 0, 1), n_g.permute(2, 0, 1),
                         alb_g.permute(2, 0, 1), orm_g[..., 1][None], orm_g[..., 2][None],
                         valid_g.to(torch.float32)[None]], 0)

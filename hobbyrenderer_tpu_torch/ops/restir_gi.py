@@ -158,7 +158,7 @@ def restir_gi(gpu, rt, gb, vc, settings, prev: GIReservoir, frame_index: int,
     NEE walk's)."""
     if shard is not None:
         raise NotImplementedError("row-band sharding is not ported yet: "
-                                  "ROADMAP Queue 1 slice 7 (multi-GPU)")
+                                  "ROADMAP Queue 1 item 10 (multi-GPU)")
     H, W = gb.depth.shape
     Hg, Wg = H // scale, W // scale
     R = Hg * Wg

@@ -6,8 +6,10 @@ below ``rough_max``) and frame; mirror-like pixels (roughness below
 DELTA_ROUGHNESS) reflect about the normal with a Fresnel-only weight. The
 active lanes compact into a fixed capacity (no host sync), take one closest
 hit each through ``closest_hit_auto`` (the bvh16 walk K3 under a 512-step
-4-ary budget), shade the hit as the GI bounce does (emission, one NEE sample, sky exitance), and
-read the sky on a miss; lanes past the capacity read the sky too. The
+4-ary budget), shade the hit as the GI bounce does (emission, one NEE
+sample, sky exitance, and with ``sharc_cache`` the SHARC cache's value at
+the hit's cell), and read the sky on a miss; lanes past the capacity read
+the sky too. The
 demodulated signal goes through the RELAX temporal pass and a short
 roughness-aware A-trous, is upsampled, remodulated, and returned weighted by
 the blend that hands over to the split-sum ambient at higher roughness."""
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from hobbyrenderer_tpu_torch.ops import sampling as smp
+from hobbyrenderer_tpu_torch.ops import sharc as sharcops
 from hobbyrenderer_tpu_torch.ops import sky as skyops
 from hobbyrenderer_tpu_torch.ops import trace as traceops
 from hobbyrenderer_tpu_torch.ops.denoise import (DenoiseState, atrous_filter, denoise_init,
@@ -70,14 +73,12 @@ def specular_indirect(gpu, rt, gb, vc, settings, state: DenoiseState, frame_inde
     reflection walk's K3 lanes and those that spent its budget),
     ``nee_lanes`` / ``nee_capped``, and ``past_cap`` (active lanes past the
     capacity)."""
-    if sharc_cache is not None:
-        raise NotImplementedError("SHARC is not ported yet: ROADMAP Queue 1 slice 7 (SHARC)")
     if env_fn is not None:
         raise NotImplementedError("environment maps are not ported yet: ROADMAP Queue 1 "
-                                  "slice 7 (env maps and authored IBL)")
+                                  "item 5 (environment maps and authored IBL)")
     if shard is not None:
         raise NotImplementedError("row-band sharding is not ported yet: "
-                                  "ROADMAP Queue 1 slice 7 (multi-GPU)")
+                                  "ROADMAP Queue 1 item 10 (multi-GPU)")
     H, W = gb.depth.shape
     Hs, Ws = H // scale, W // scale
     R = Hs * Ws
@@ -142,9 +143,13 @@ def specular_indirect(gpu, rt, gb, vc, settings, state: DenoiseState, frame_inde
     # ---- shade the secondary surface ----
     skip_mask = ~delta_c if skip_pool_emissive else torch.zeros_like(delta_c)
     nee = {}
-    _hp, _hn, hrad = _hit_radiance(gpu, rt, rt.lights, hit, o_c, d_c, pix_c + PIX_SALT, frame,
-                                   stats_out=nee, skip_pool_emissive=skip_mask,
-                                   sky_sh=sky_sh, ibl_scale=ibl_scale)
+    hpos, hnrm, hrad = _hit_radiance(gpu, rt, rt.lights, hit, o_c, d_c, pix_c + PIX_SALT,
+                                     frame, stats_out=nee, skip_pool_emissive=skip_mask,
+                                     sky_sh=sky_sh, ibl_scale=ibl_scale)
+    if sharc_cache is not None:
+        # the radiance cache's multi-bounce tail at the hit's cell
+        fb, fb_ok = sharcops.sharc_query(sharc_cache, hpos, hnrm, vc["camera_pos"])
+        hrad = hrad + torch.where((fb_ok & (hit.tri >= 0))[..., None], fb, 0.0)
     so.update(nee_lanes=nee["k3_lanes"], nee_capped=nee["k3_capped"],
               past_cap=torch.clamp(active.sum() - CAP, min=0))
     if include_env_miss:

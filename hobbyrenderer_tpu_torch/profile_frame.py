@@ -3,6 +3,8 @@
     python -m hobbyrenderer_tpu_torch.profile_frame --scene stress \
         [--direct-mode restir] [--indirect-mode restir] \
         [--mode normal_basic --indirect-mode ddgi] [--mode path_tracer] [--frames 8]
+    python -m hobbyrenderer_tpu_torch.profile_frame --mode ibl --direct-mode restir \
+        --indirect-mode combined --regir
 
 Renders ``--frames`` frames and prints, per pass: the stream time (CUDA
 events around each pass, median over the frames after the first) and the
@@ -120,8 +122,12 @@ def main(argv=None):
                    help="default 1920 (960 for the path tracer, bench.py's PT size)")
     p.add_argument("--height", type=int, default=None, help="default 1080 (540)")
     p.add_argument("--direct-mode", default="simple", choices=("simple", "restir"))
-    p.add_argument("--mode", default="normal", choices=("normal", "normal_basic", "path_tracer"))
-    p.add_argument("--indirect-mode", default="none", choices=("none", "ssgi", "ddgi", "restir"))
+    p.add_argument("--mode", default="normal",
+                   choices=("normal", "normal_basic", "ibl", "path_tracer"))
+    p.add_argument("--indirect-mode", default="none",
+                   choices=("none", "sharc", "ssgi", "restir", "ddgi", "combined"))
+    p.add_argument("--regir", action="store_true")
+    p.add_argument("--regir-mode", default="onion", choices=("onion", "grid"))
     p.add_argument("--no-specular-indirect", dest="specular_indirect", action="store_false")
     p.add_argument("--frames", type=int, default=8)
     p.add_argument("--cache-dir", default=".hr_cache")
@@ -139,6 +145,7 @@ def main(argv=None):
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
     r = Renderer(Config(scene=a.scene, width=a.width, height=a.height, mode=a.mode,
                         direct_mode=a.direct_mode, indirect_mode=a.indirect_mode,
+                        regir=a.regir, regir_mode=a.regir_mode,
                         specular_indirect=a.specular_indirect, cache_dir=a.cache_dir),
                  device="cuda")
     names = [] if pt else [ps.name for ps in r.graph.passes if ps.enabled]

@@ -1,18 +1,20 @@
 """Top-level Renderer: scene, camera, frame graph and frame loop on an
 explicit torch device (counterpart of hobbyrenderer_tpu/renderer.py).
 
-Ported: the Normal-mode frame with simple direct lighting or ReSTIR DI
-(``direct_mode="restir"``, every ``restir_quality`` preset, both
-denoisers) and ``indirect_mode`` none or restir (ReSTIR GI, with traced
-specular unless ``specular_indirect`` is off: with ReSTIR DI this is the
-flagship frame), the NormalBasic frame (cascaded shadow maps) with
-``indirect_mode`` none, ssgi or ddgi, and the reference path tracer
-(``mode="path_tracer"``, progressive, ``pt_spp`` samples a frame); every
-other option raises NotImplementedError naming the ROADMAP slice that
-brings it."""
+Ported: the deferred frame in the Normal, IBL and NormalBasic modes with
+simple direct lighting or ReSTIR DI (``direct_mode="restir"``, every
+``restir_quality`` preset, both denoisers, with or without ``regir`` in
+either ``regir_mode``) and every ``indirect_mode`` (none, sharc, ssgi,
+restir, ddgi, combined; traced specular unless ``specular_indirect`` is
+off), each pass run where the JAX package runs it (restir + restir in
+Normal mode is the flagship frame), and the reference path tracer
+(``mode="path_tracer"``, progressive, ``pt_spp`` samples a frame). Every
+other option raises NotImplementedError naming the ROADMAP Queue 1 item
+that brings it."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -27,15 +29,17 @@ from hobbyrenderer_tpu_torch.scene.camera_state import CameraStateManager
 from hobbyrenderer_tpu_torch.utils import math as hm
 from hobbyrenderer_tpu_torch.utils.image import write_png
 from hobbyrenderer_tpu_torch.utils.timing import PROFILER
-from hobbyrenderer_tpu_torch.models.deferred import DeferredRenderer
+from hobbyrenderer_tpu_torch.models.deferred import DeferredRenderer, pass_gates
 from hobbyrenderer_tpu_torch.models.pathtracer import PathTracerRenderer
 from hobbyrenderer_tpu_torch.models.scene_rt import build_scene_rt
 from hobbyrenderer_tpu_torch.scene.gpu import build_scene_gpu, update_instance_transforms
 
-_REGIR = "ROADMAP Queue 1 slice 7 (ReGIR)"
-_LATER = ("ROADMAP Queue 1 slice 7 (options outside the ported Normal, NormalBasic and "
-          "path tracer frames)")
-_OTHER_GI = "ROADMAP Queue 1 slice 7 (SHARC; DDGI and SSGI in Normal mode)"
+_ENV = "ROADMAP Queue 1 item 5 (environment maps and authored IBL)"
+_ANIM = "ROADMAP Queue 1 item 6 (animated scenes: the per-frame refit)"
+_OPTIONS = "ROADMAP Queue 1 item 7 (TAA upscaling and the remaining options)"
+_DEBUG = "ROADMAP Queue 1 item 8 (debug views)"
+_STREAMING = "ROADMAP Queue 1 item 9 (texture streaming)"
+INDIRECT_MODES = ("none", "sharc", "ssgi", "restir", "ddgi", "combined")
 
 
 def check_config(cfg: Config):
@@ -44,31 +48,26 @@ def check_config(cfg: Config):
         if not ok:
             raise NotImplementedError(f"{what} is not ported yet: {slice_}")
 
-    need(cfg.mode in (RenderingMode.NORMAL, RenderingMode.NORMAL_BASIC,
-                      RenderingMode.PATH_TRACER), f"--mode {cfg.mode}", _LATER)
+    if cfg.mode not in RenderingMode.ALL:
+        raise ValueError(f"unknown mode '{cfg.mode}' ({' | '.join(RenderingMode.ALL)})")
     if cfg.mode != RenderingMode.PATH_TRACER:
         # the path tracer reads none of the deferred frame's options
-        need((cfg.direct_mode or "simple") in ("simple", "restir"),
-             f"--direct-mode {cfg.direct_mode}", _LATER)
-        need(not cfg.regir, "--regir", _REGIR)
+        if (cfg.direct_mode or "simple") not in ("simple", "restir"):
+            raise ValueError(f"unknown direct mode '{cfg.direct_mode}' (simple | restir)")
+        if (cfg.indirect_mode or "none") not in INDIRECT_MODES:
+            raise ValueError(f"unknown indirect mode '{cfg.indirect_mode}' "
+                             f"({' | '.join(INDIRECT_MODES)})")
         if (cfg.direct_mode or "simple") == "restir" and cfg.denoiser not in ("relax", "reblur"):
             raise ValueError(f"unknown denoiser '{cfg.denoiser}' (relax | reblur)")
-        indirect = cfg.indirect_mode or "none"
-        if cfg.mode == RenderingMode.NORMAL:
-            need(indirect in ("none", "restir"), f"--indirect-mode {cfg.indirect_mode} in "
-                 f"--mode {cfg.mode}", _OTHER_GI)
-        else:
-            need(indirect in ("none", "ssgi", "ddgi"), f"--indirect-mode {cfg.indirect_mode} "
-                 f"in --mode {cfg.mode}", _OTHER_GI)
-        need(cfg.render_scale == 1.0, "--render-scale != 1 (TAA upscaling)", _LATER)
-    need(not cfg.tex_streaming, "texture streaming", _LATER)
+        need(cfg.render_scale == 1.0, "--render-scale != 1 (TAA upscaling)", _OPTIONS)
+    need(not cfg.tex_streaming, "texture streaming", _STREAMING)
     need(not (cfg.envmap or cfg.irradiance or cfg.radiance or cfg.brdflut
-              or cfg.env_lights), "environment maps / authored IBL", _LATER)
+              or cfg.env_lights), "environment maps / authored IBL", _ENV)
     need(not (cfg.debug_view or cfg.csm_debug or cfg.ddgi_debug or cfg.tex_debug),
-         "debug views", _LATER)
-    need(not cfg.execute_per_pass, "--execute-per-pass", _LATER)
-    need(not cfg.tune_file, "--tune-file", _LATER)
-    need(not cfg.keep_hdr, ".hdr screenshots", _LATER)
+         "debug views", _DEBUG)
+    need(not cfg.execute_per_pass, "--execute-per-pass", _OPTIONS)
+    need(not cfg.tune_file, "--tune-file", _OPTIONS)
+    need(not cfg.keep_hdr, ".hdr screenshots", _ENV)
 
 
 def device_view_constants(vc, device) -> dict:
@@ -119,9 +118,9 @@ class Renderer:
                 self.scene = load_gltf_scene(cfg.scene, cache_dir=cfg.cache_dir)
         if self.scene.animations:
             raise NotImplementedError(
-                f"animated scenes need a per-frame BVH refit, not ported yet: {_LATER}")
+                f"animated scenes need a per-frame BVH refit, not ported yet: {_ANIM}")
         if getattr(self.scene, "env_map_path", ""):
-            raise NotImplementedError(f"scene environment maps are not ported yet: {_LATER}")
+            raise NotImplementedError(f"scene environment maps are not ported yet: {_ENV}")
         with PROFILER.scope("Init/Upload"):
             self.gpu = build_scene_gpu(self.scene, self.device,
                                        max_lights=max(64, len(self.scene.lights) + 8))
@@ -142,37 +141,54 @@ class Renderer:
         self.camera_state.restore(self.camera, self._scene_key)
         self.camera_state.start()
         self.bvh_seconds = 0.0
-        if cfg.mode == RenderingMode.PATH_TRACER:
+        self.mode = cfg.mode
+        self._build_model()
+
+    def _build_rt(self, with_pool: bool):
+        """The ray-tracing scene; with the light pool and the 16-wide BVH
+        when ``with_pool``."""
+        with PROFILER.scope("Init/BVH"):
+            t0 = time.perf_counter()
+            rt = build_scene_rt(self.scene, self.device, gpu=self.gpu if with_pool else None)
+            self.bvh_seconds = time.perf_counter() - t0
+        return rt
+
+    def _build_model(self):
+        cfg = self.config
+        if self.mode == RenderingMode.PATH_TRACER:
             if cfg.render_scale != 1.0:
                 print("warning: --render-scale is a TAA-upscaling feature of the deferred "
                       "modes; the reference path tracer renders at the internal resolution "
                       f"{cfg.render_width}x{cfg.render_height}")
-            with PROFILER.scope("Init/BVH"):
-                t0 = time.perf_counter()
-                rt = build_scene_rt(self.scene, self.device, gpu=self.gpu)
-                self.bvh_seconds = time.perf_counter() - t0
             self._model = PathTracerRenderer(self.gpu, cfg.render_width, cfg.render_height,
-                                             config=cfg, rt=rt)
+                                             config=cfg, rt=self._build_rt(True))
             return
-        # the JAX Renderer's rule: the traced passes need the RT scene (the
-        # Normal frame's sun shadow, RTXDI or ReSTIR GI, NormalBasic's DDGI);
-        # the light pool and the 16-wide BVH only RTXDI, ReSTIR GI and DDGI
-        traced_gi = (cfg.indirect_mode or "none") in ("ddgi", "restir")
-        restir = (cfg.direct_mode or "simple") == "restir" and cfg.mode == RenderingMode.NORMAL
+        direct = cfg.direct_mode or "simple"
+        indirect = cfg.indirect_mode or "none"
+        # the JAX Renderer's rule: the RT scene in the Normal and IBL modes
+        # and for DDGI or ReSTIR GI; the light pool and the 16-wide BVH only
+        # where a pass walks them (RTXDI, RTXDIGI, SHARC, DDGI, SpecularIndirect)
         rt = None
-        if cfg.mode == RenderingMode.NORMAL or traced_gi:
-            with PROFILER.scope("Init/BVH"):
-                t0 = time.perf_counter()
-                rt = build_scene_rt(self.scene, self.device,
-                                    gpu=self.gpu if (restir or traced_gi) else None)
-                self.bvh_seconds = time.perf_counter() - t0
+        traced_mode = self.mode in (RenderingMode.NORMAL, RenderingMode.IBL)
+        if traced_mode or indirect in ("ddgi", "restir"):
+            g = pass_gates(self.mode, direct, indirect, cfg.specular_indirect, True)
+            rt = self._build_rt(any(g[k] for k in ("use_restir", "use_restir_gi", "use_sharc",
+                                                   "use_ddgi", "use_spec")))
         self._model = DeferredRenderer(self.gpu, cfg.render_width, cfg.render_height,
-                                       rt=rt, shadow_scale=cfg.shadow_scale, mode=cfg.mode,
-                                       direct_mode=cfg.direct_mode or "simple",
-                                       indirect_mode=cfg.indirect_mode or "none",
+                                       rt=rt, shadow_scale=cfg.shadow_scale, mode=self.mode,
+                                       direct_mode=direct, indirect_mode=indirect,
                                        restir_quality=cfg.restir_quality,
                                        denoiser_profile=cfg.denoiser,
-                                       specular_indirect=cfg.specular_indirect)
+                                       specular_indirect=cfg.specular_indirect,
+                                       regir=cfg.regir, regir_mode=cfg.regir_mode)
+
+    def set_mode(self, mode: str):
+        """Switch the rendering mode: rebuild the model (and its ray-tracing
+        scene), dropping the old mode's persistent state."""
+        if mode != self.mode:
+            check_config(dataclasses.replace(self.config, mode=mode))
+            self.mode = mode
+            self._build_model()
 
     @property
     def graph(self):

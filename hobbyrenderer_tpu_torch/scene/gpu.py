@@ -196,8 +196,8 @@ def scene_gpu_from_numpy(d: Dict[str, np.ndarray], device) -> SceneGPU:
     for k in ("tex_stream", "env_map", "env_sh", "brdf_lut"):
         if d.get(k) is not None:
             raise NotImplementedError(
-                f"SceneGPU.{k} is not ported yet (ROADMAP Queue 1: scene "
-                "options outside the default Normal frame)")
+                f"SceneGPU.{k} is not ported yet (ROADMAP Queue 1 item 5, environment "
+                "maps and authored IBL, and item 9, texture streaming)")
     return SceneGPU(**{k: _to_tensor(d[k], device) for k in FIELDS})
 
 

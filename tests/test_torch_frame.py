@@ -149,9 +149,9 @@ def test_cpu_frame_counts_no_kernel_launch(tmp_path):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(regir=True, direct_mode="restir"), dict(indirect_mode="sharc"),
+    dict(envmap="sky.hdr"), dict(csm_debug=True),
     dict(mode="path_tracer", envmap="sky.hdr"),
-    dict(mode="ibl"), dict(render_scale=0.5), dict(tex_streaming=True),
+    dict(keep_hdr=True), dict(render_scale=0.5), dict(tex_streaming=True),
     dict(execute_per_pass=True), dict(debug_view="ssgi_radiance")])
 def test_unported_options_raise(tmp_path, opt):
     cfg = Config(scene="cube", width=64, height=48, cache_dir=str(tmp_path), **opt)
