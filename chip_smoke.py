@@ -34,7 +34,17 @@ the JAX graph's passes, K1-K4 every frame, a finite HDR, SHARC's occupied
 slots never shrinking), K2 on its first frame's 1,080-cell table (phase
 21), its second frame's SHARC update twice on the card and once on the
 CPU (phase 22), and three new configurations CUDA against CPU at 256x192
-(phase 23).
+(phase 23). Last, this slice's main path: the flagship frame on the
+stress scene with every 8th node animated (so every frame refits the
+ray-tracing scene on the card) and a seeded 2048x1024 HDR sky turned into
+64 directional lights, 8 frames at 1920x1080 (phase 24: frame and pass
+times with the refit's, host syncs by pass, K1-K4 every frame; frame 3's
+K3 walks and K4 calls on the refitted tables and its K2 call on the
+env-light pool held bit for bit against their plain versions, three
+launches equal; the refit twice on the card, the same bits, and once on
+the CPU), the same upscaled from render_scale 0.5 in turns with the native
+one (phase 25: K1 at 960x540 bit-exact), and three configurations CUDA
+against CPU at 256x192 (phase 26).
 Any failed check raises: the script then exits nonzero without its final
 line.
 
@@ -78,6 +88,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -945,6 +956,389 @@ def phase_new_configs_cuda_vs_cpu(Renderer, Config, W=256, H=192, frames=3):
         assert within >= 0.99, (name, within)
 
 
+ENV_LIGHTS = 64
+ENV_W, ENV_H = 2048, 1024
+REFIT_REL = 2.0 ** -20   # refit CUDA against CPU: tests/test_torch_refit.py's bound
+
+
+def _to_device(x, dev):
+    """A SceneRT (nested NamedTuples of tensors and ints) on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_device(v, dev) for v in x))
+    return x
+
+
+def _tensors(x, prefix=""):
+    """{dotted name: tensor} of a SceneRT's tensors."""
+    if isinstance(x, torch.Tensor):
+        return {prefix: x}
+    out = {}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        for k, v in zip(x._fields, x):
+            out.update(_tensors(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+def write_sky(seed=7):
+    """Phases 24-26's environment: scene/workload.py's seeded sky at
+    2048x1024 (a gradient and a bright lobe), written as .hdr to a
+    temporary directory."""
+    from hobbyrenderer_tpu_torch.ops import envmap as envops
+    from hobbyrenderer_tpu_torch.scene.workload import sky_envmap
+    path = os.path.join(tempfile.mkdtemp(prefix="hr_smoke_env"), "sky.hdr")
+    with open(path, "wb") as f:
+        f.write(envops.encode_hdr(sky_envmap(ENV_H, ENV_W, seed=seed)))
+    return path
+
+
+def env_anim_renderer(Renderer, Config, env_path, W, H, device="cuda", grid=None, **kw):
+    """Phase 24's configuration: the flagship frame (restir + restir,
+    specular on) on the stress scene with every 8th node animated (a 2 s
+    rise and turn) and the env map as ENV_LIGHTS directional lights."""
+    from hobbyrenderer_tpu_torch.scene.procedural import make_stress_scene
+    from hobbyrenderer_tpu_torch.scene.workload import animate_nodes
+    scene = animate_nodes(make_stress_scene() if grid is None else make_stress_scene(grid=grid))
+    cfg = dict(scene="stress" if grid is None else f"stress:{grid}", width=W, height=H,
+               direct_mode="restir", indirect_mode="restir", envmap=env_path,
+               env_lights=ENV_LIGHTS,
+               cache_dir=os.path.join(tempfile.gettempdir(), f"hr_smoke_envanim_{W}"))
+    cfg.update(kw)
+    return Renderer(Config(**cfg), scene=scene, device=device)
+
+
+def phase_env_anim(Renderer, Config, reset_counts, counts, time_passes, median_ms, card,
+                   env_path, n_frames, W=1920, H=1080, grid=None):
+    """Phase 24: the slice's main path at 1920x1080, n_frames frames:
+    set-up s, frame ms (median of frames 2-n), per-pass stream ms and
+    Frame/RTRefit's, K1-K4 launches a frame, the host syncs of each frame
+    (set_sync_debug_mode "warn"), the power-CDF refreshes; then three more
+    frames under torch.profiler (kernels a frame, busy share). Captures
+    frame 3's K3 walks and K4 calls (the refitted tables), its K2 call (the
+    pool holding the environment's lights) and its refit's inputs."""
+    from hobbyrenderer_tpu_torch import renderer as rmod
+    from hobbyrenderer_tpu_torch.ops import beam as beamops
+    from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
+    from hobbyrenderer_tpu_torch.ops import restir_kernel as rko
+    from hobbyrenderer_tpu_torch.profile_frame import busy_share, traced_frames
+    t0 = time.perf_counter()
+    r = env_anim_renderer(Renderer, Config, env_path, W, H, grid=grid)
+    setup_s = time.perf_counter() - t0
+    r._model.keep = ("hdr",)
+    events = time_passes(r.graph)
+    cap = {"k3": [], "k4": []}
+    refit_orig, k2_orig = rmod.refit_scene_rt, rko.restir_candidates
+    k3_orig, k4_orig = b16ops.bvh16_walk, beamops.beam_any_hit_tiles
+    refit_ev = []
+
+    def refit_spy(rt, inst_transform):
+        if r.frame_index == 2:
+            cap["refit"] = (rt, inst_transform.clone())
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda.set_sync_debug_mode("error")     # the refit must not wait for the device
+        try:
+            out = refit_orig(rt, inst_transform)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+        e1.record()
+        refit_ev.append((e0, e1))
+        return out
+
+    # each host sync of a frame is counted against the pass it happens in
+    # ("outside": the scene update, the refit, the view constants)
+    where = ["outside"]
+    by_pass = {}
+    for ps in r.graph.passes:
+        if ps.enabled:
+            def named(ctx, res, fn=ps.fn, name=ps.name):
+                where[0] = name
+                try:
+                    fn(ctx, res)
+                finally:
+                    where[0] = "outside"
+            ps.fn = named
+
+    def on_warning(message, *a, **kw):
+        if "synchroniz" in str(message):
+            by_pass[where[0]] = by_pass.get(where[0], 0) + 1
+
+    def k2_spy(*a, **kw):
+        if r.frame_index == 2:
+            cap.setdefault("k2", (a, kw))
+        return k2_orig(*a, **kw)
+
+    def k3_spy(table, o, d, t_max, any_hit, max_steps, t_min=1e-4):
+        if r.frame_index == 2:
+            cap["k3"].append((table, o, d, t_max, any_hit, max_steps, t_min))
+        return k3_orig(table, o, d, t_max, any_hit, max_steps, t_min)
+
+    def k4_spy(btable, rays):
+        if r.frame_index == 2:
+            cap["k4"].append((btable, rays.clone()))
+        return k4_orig(btable, rays)
+
+    rmod.refit_scene_rt, rko.restir_candidates = refit_spy, k2_spy
+    b16ops.bvh16_walk, beamops.beam_any_hit_tiles = k3_spy, k4_spy
+    try:
+        reset_counts()
+        frame_ms, per_frame, syncs, stats = [], [], [], []
+        for _ in range(n_frames):
+            c0 = counts()
+            f0 = time.perf_counter()
+            n0 = sum(by_pass.values())
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = on_warning
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    r.render_frame()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - f0) * 1e3)
+            syncs.append(sum(by_pass.values()) - n0)
+            per_frame.append({k: v - c0[k] for k, v in counts().items()})
+            stats.append(r.stats())
+        launches = counts()
+    finally:
+        rmod.refit_scene_rt, rko.restir_candidates = refit_orig, k2_orig
+        b16ops.bvh16_walk, beamops.beam_any_hit_tiles = k3_orig, k4_orig
+    finite = bool(torch.isfinite(r._model.last_resources["hdr"]).all())
+    ldr = r.last_frame
+    png = os.path.join(tempfile.gettempdir(), "chip_smoke_stress_env_anim_1080p.png")
+    r.save_screenshot(png)
+    passes = [p.name for p in r.graph.passes if p.enabled]
+    n_lights = r.gpu.meta["light_count"]
+    dev, _, wall_ms = traced_frames(r, 3)
+    names = set(passes) | {"Frame/RTRefit"}
+    busy = busy_share([e for e in dev if e.name not in names], 3, wall_ms)
+    r.shutdown()
+    pass_ms = {k: median_ms(v) for k, v in events.items()}
+    pass_ms["Frame/RTRefit"] = median_ms(refit_ev)
+    med = statistics.median(frame_ms[1:])
+    k3_share = {w: f"{sum(x[f'rt_k3_capped_{w}'] for x in stats)}/"
+                   f"{sum(x[f'rt_k3_lanes_{w}'] for x in stats)}"
+                for w in ("di", "gi", "gi_nee", "spec", "spec_nee")}
+    log(f"phase24 env + animated flagship main path stress {W}x{H} x{n_frames} on {card}: "
+        f"setup {setup_s:.1f} s (BVH+beam table+bvh16+light pool {r.bvh_seconds:.1f} s), "
+        f"{n_lights} analytic lights ({n_lights - 9} from the env map), passes {passes}, "
+        f"frame ms {[round(x, 2) for x in frame_ms]}, median frames 2-{n_frames} {med:.2f} ms, "
+        f"launches {launches}, per frame {per_frame}, host syncs per frame {syncs} (over the "
+        f"{n_frames} frames by pass {json.dumps(by_pass)}; the refit ran under sync-debug "
+        f"'error'), power-CDF "
+        f"refreshes {stats[-1]['pool_cdf_host_syncs']}, K3 capped/lanes over the frames "
+        f"{k3_share}, rt_overflow_di per frame {[x['rt_overflow_di'] for x in stats]}, "
+        f"profiled frames {json.dumps(busy)}; png {png}")
+    log(f"phase24 per-pass stream ms (CUDA events, median of frames 2-{n_frames}) on {card}: "
+        f"{json.dumps(pass_ms)}")
+    assert tuple(ldr.shape) == (H, W, 3) and ldr.dtype == torch.uint8
+    assert finite, "non-finite HDR"
+    assert passes == ["Culling", "Raster", "HZBBuild", "RasterPhase2", "ResolveGBuffer",
+                      "MaskedLayer", "IBL", "RTXDI", "RTXDIGI", "Denoise", "SpecularIndirect",
+                      "DeferredLighting", "Sky", "Transparent", "TAA", "AutoExposure", "Bloom",
+                      "Tonemap"], passes
+    assert n_lights > 9 + ENV_LIGHTS // 2, n_lights
+    assert len(refit_ev) == n_frames, "a frame did not refit the RT scene"
+    for i, c in enumerate(per_frame):
+        assert c["K1"] >= 3 and c["K2"] >= 1 and c["K3"] >= 2 and c["K4"] >= 2, (i, c)
+        assert c["K5"] == 0 and c["K6"] == 0, (i, c)
+    assert stats[-1]["pool_cdf_host_syncs"] == 1, "a frame after the first refreshed the pool"
+    assert "k2" in cap and cap["k3"] and cap["k4"] and "refit" in cap, \
+        "frame 3 did not reach K2, K3, K4 and the refit"
+    return dict(launches=launches, cap=cap, ms=med, pass_ms=pass_ms, setup_s=setup_s,
+                syncs=syncs, syncs_by_pass=by_pass, busy=busy, k3_capped=k3_share)
+
+
+def phase_env_anim_kernels(cap, bench_k2k4, card):
+    """Phase 24's checks: frame 3's K3 walks and K4 calls (on the refitted
+    16-wide table and beam table) and its K2 call (the pool with the env
+    lights), each held against its plain version with three launches equal;
+    the refit twice on the card (the same bits) and once on the CPU
+    (within REFIT_REL; it adds and multiplies in a fixed order, so the bits
+    are expected equal too), its ms and its kernel launches."""
+    from hobbyrenderer_tpu_torch.models.scene_rt import refit_scene_rt
+    from hobbyrenderer_tpu_torch.ops import beam as beamops
+    from hobbyrenderer_tpu_torch.ops import restir_kernel as rko
+    out = {"k3": [], "k4": []}
+    for i, walk in enumerate(cap["k3"]):
+        x = k3_check(walk)
+        tab, o, d, tm, any_hit, steps, _ = walk
+        ps = x["ref"][2]
+        out["k3"].append(dict(name=f"frame3[{i}]", rays=o.shape[0], any_hit=any_hit,
+                              max_steps=steps, ms=x["ms"], plain_ms=x["plain_ms"],
+                              bound_ms=x["bound"][0], bound_by=x["bound"][1], err=x["err"],
+                              capped=int((ps >= steps).sum())))
+        log(f"phase24 K3 frame-3 walk {i} on the refitted bvh16 ({tuple(tab.shape)}) rays="
+            f"{o.shape[0]} any_hit={any_hit} max_steps={steps}: mismatches {x['mis']}, three "
+            f"launches equal {x['repeat_equal']}, lanes at the budget "
+            f"{out['k3'][-1]['capped']}; kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.3f} "
+            f"ms, bound {x['bound'][0]:.4f} ms ({x['bound'][1]}) on {card}")
+        assert not any(x["mis"].values()), f"K3 frame-3 walk {i} differs from its plain version"
+        assert x["repeat_equal"], f"three K3 launches on frame-3 walk {i} differ"
+    for i, (btable, rays) in enumerate(cap["k4"]):
+        x, line = bench_k2k4.held_k4(btable, rays)
+        x["ms"] = cuda_ms(lambda: beamops.beam_any_hit_tiles(btable, rays))
+        out["k4"].append(dict(name=f"frame3[{i}]", ms=x["ms"], plain_ms=x["plain_ms"],
+                              bound_ms=x["bound_ms"], bound_by=x["bound_by"],
+                              active_lanes=x["active"], mismatches=x["mismatches"],
+                              max_abs_err=x["max_abs_err"]))
+        log(f"phase24 K4 frame-3 call {i} on the refitted beam table {tuple(btable.shape)} "
+            f"rays={tuple(rays.shape)}: {line}; kernel {x['ms']:.4f} ms on {card}")
+        assert x["mismatches"] <= 1e-4 * max(x["active"], 1), (i, x["mismatches"])
+        assert x["replay_mismatches"] == 0, (i, x["replay_mismatches"])
+        assert x["repeat_equal"], f"three K4 launches on frame-3 call {i} differ"
+    a, kw = cap["k2"]
+    row, line, _ = bench_k2k4.held_k2(a, kw)
+    slots = a[0]                     # (T, 18, 128): a packed row, inv_pdf, id a slot
+    dir_slots = float(((slots[:, 13] < 0.5) & (slots[:, 0] == 0)
+                       & (slots[:, 17] >= 0)).float().mean())
+    row["ms"] = cuda_ms(lambda: rko.restir_candidates(*a, **kw))
+    row["directional_slots"] = dir_slots
+    out["k2"] = row
+    log(f"phase24 K2 frame-3 call on the env-light pool: {line}; directional slots "
+        f"{dir_slots:.4f}; kernel {row['ms']:.4f} ms on {card}")
+    assert all(row["equal"].values()), f"K2 on the env-light pool differs: {row['equal']}"
+    assert row["repeat_equal"], "three K2 launches on the env-light pool differ"
+    assert dir_slots > 0.05, dir_slots
+    rt, T = cap["refit"]
+    r1, r2 = refit_scene_rt(rt, T), refit_scene_rt(rt, T)
+    torch.cuda.synchronize()
+    t1, t2 = _tensors(r1), _tensors(r2)
+    same = all(torch.equal(t1[k], t2[k]) for k in t1)
+    rc = _tensors(refit_scene_rt(_to_device(rt, "cpu"), T.cpu()))
+    worst, bits = 0.0, True
+    for k, v in t1.items():
+        g, c = v.cpu(), rc[k]
+        bits = bits and torch.equal(g, c)
+        if g.is_floating_point():
+            worst = max(worst, float(((g - c).abs() / c.abs().clamp(min=1.0)).max()))
+    ms = cuda_ms(lambda: refit_scene_rt(rt, T))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        refit_scene_rt(rt, T)
+        torch.cuda.synchronize()
+    launched = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels_n = sum(1 for e in launched if "memcpy" not in e.name.lower()
+                    and "memset" not in e.name.lower())
+    nbytes_out = sum(v.numel() * v.element_size() for v in t1.values())
+    out["refit"] = dict(ms=ms, kernels=kernels_n, same_bits_twice=same, cpu_bits_equal=bits,
+                        cpu_max_rel=worst, bytes_out=nbytes_out)
+    log(f"phase24 refit (4-wide tree + beam table + bvh16 + light pool, "
+        f"{rt.split_world0.shape[0]} split triangles) on {card}: {ms:.3f} ms (CUDA events, "
+        f"median of 5), {kernels_n} kernels a refit; twice on the card torch.equal {same}; "
+        f"against the CPU: bits equal {bits}, max rel err {worst:.3g} (bound {REFIT_REL:.3g})")
+    assert same, "the refit gave other bits on a second run"
+    assert worst <= REFIT_REL, worst
+    return out
+
+
+def phase_taau(Renderer, Config, counts, time_passes, median_ms, card, env_path, n_frames,
+               flag_ms, bench_raster, W=1920, H=1080, grid=None):
+    """Phase 25: phase 24's configuration at render_scale 0.5 (K1 rasters
+    at 960x540; TAA, exposure, bloom and tonemap at 1920x1080), its frames
+    taken in turns with a second renderer of phase 24's configuration (so
+    that both see the same host and allocator state): frame ms of both and
+    against phase 24's, per-pass stream ms of both, K1 launches of the
+    upscaled path, and the first K1 call of its frame 2 (at the internal
+    size) held against its plain version."""
+    from hobbyrenderer_tpu_torch.ops import raster_kernel as rk
+    cap = []
+    k1_orig = rk.raster_resolve_tiles
+    rs = {"0.5": env_anim_renderer(Renderer, Config, env_path, W, H, grid=grid,
+                                   render_scale=0.5),
+          "1.0": env_anim_renderer(Renderer, Config, env_path, W, H, grid=grid)}
+    r = rs["0.5"]
+    rendering = [None]
+
+    def k1_spy(records, work_tile, work_slot, **kw):
+        if rendering[0] == "0.5" and r.frame_index == 1 and not cap:
+            cap.append((records, work_tile, work_slot, kw))
+        return k1_orig(records, work_tile, work_slot, **kw)
+
+    events = {k: time_passes(x.graph) for k, x in rs.items()}
+    frame_ms = {k: [] for k in rs}
+    launches = dict.fromkeys(counts(), 0)      # the upscaled renderer's
+    rk.raster_resolve_tiles = k1_spy
+    try:
+        for _ in range(n_frames):
+            for k, x in rs.items():
+                rendering[0] = k
+                c0 = counts()
+                f0 = time.perf_counter()
+                x.render_frame()
+                torch.cuda.synchronize()
+                frame_ms[k].append((time.perf_counter() - f0) * 1e3)
+                if k == "0.5":
+                    for n, v in counts().items():
+                        launches[n] += v - c0[n]
+    finally:
+        rk.raster_resolve_tiles = k1_orig
+    ldr = r.last_frame
+    hist = r._model.state["taa_history"]
+    size = (r._model.width, r._model.height)
+    for x in rs.values():
+        x.shutdown()
+    med = {k: statistics.median(v[1:]) for k, v in frame_ms.items()}
+    x = raster_check(bench_raster, True, *cap[0])
+    log(f"phase25 TAA upscaling, phase 24's configuration at render_scale 0.5 (render "
+        f"{size[0]}x{size[1]}, output {W}x{H}) x{n_frames}, in turns with render_scale 1.0, "
+        f"on {card}: frame ms 0.5 {[round(v, 2) for v in frame_ms['0.5']]}, 1.0 "
+        f"{[round(v, 2) for v in frame_ms['1.0']]}; median frames 2-{n_frames} "
+        f"{med['0.5']:.2f} ms against {med['1.0']:.2f} ms in turns "
+        f"({med['0.5'] / med['1.0']:.3f}x) and phase 24's {flag_ms:.2f} ms; launches "
+        f"{launches}; K1 frame-2 call tiles={cap[0][3]['tiles']}: {x['line']}")
+    for k, ev in events.items():
+        log(f"phase25 render_scale {k} per-pass stream ms (CUDA events, median of frames "
+            f"2-{n_frames}) on {card}: {json.dumps({n: median_ms(v) for n, v in ev.items()})}")
+    assert size == (W // 2, H // 2), size
+    # the captured call rasters the internal size's tiles
+    assert cap[0][3]["tiles"] == -(-size[0] // rk.TILE) * -(-size[1] // rk.TILE), cap[0][3]
+    assert tuple(ldr.shape) == (H, W, 3) and tuple(hist.shape) == (H, W, 3)
+    assert launches["K1"] >= 3 * n_frames, launches
+    assert x["exact"], "K1 at the internal size: depth or visid differs from its plain version"
+    assert x["repeat_equal"], "K1 at the internal size: three launches gave different outputs"
+    assert x["plan_equal"] and x["attr_max_err"] <= 1e-4, x["attr_max_err"]
+    return dict(ms=med["0.5"], ms_full_in_turns=med["1.0"], launches=launches,
+                k1=raster_summary(x), k1_err=x["attr_max_err"])
+
+
+def phase_env_anim_cuda_vs_cpu(Renderer, Config, env_path, card, W=256, H=192, frames=3):
+    """Phase 26: stress:4 at 256x192, 3 frames, CUDA (kernels) against the
+    CPU (plain versions): (a) phase 24's configuration (nodes 8 and 16
+    animated, 64 env lights), (b) NormalBasic + DDGI at render_scale 0.5,
+    (c) the path tracer with the env map and the animation. Gate: >= 99% of
+    LDR pixels within 2/255 (phase 14's; for the path tracer phase 17's,
+    whose cause is in ROADMAP Queue 3: ulps in the plain shading flip a
+    light sample)."""
+    from hobbyrenderer_tpu_torch.scene.procedural import make_stress_scene
+    from hobbyrenderer_tpu_torch.scene.workload import animate_nodes
+    cases = (("env+anim flagship", dict(direct_mode="restir", indirect_mode="restir",
+                                        envmap=env_path, env_lights=ENV_LIGHTS), True),
+             ("normal_basic+ddgi scale 0.5", dict(mode="normal_basic", indirect_mode="ddgi",
+                                                  render_scale=0.5), False),
+             ("path tracer env+anim", dict(mode="path_tracer", envmap=env_path), True))
+    for name, kw, animated in cases:
+        cfg = Config(scene="stress:4", width=W, height=H,
+                     cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke4env"), **kw)
+        t0 = time.perf_counter()
+        rs = [Renderer(cfg, scene=animate_nodes(make_stress_scene(grid=4)) if animated else None,
+                       device=dev) for dev in ("cuda", "cpu")]
+        for _ in range(frames):
+            lg = rs[0].render_frame().cpu().numpy()
+            lc = rs[1].render_frame().numpy()
+        for r_ in rs:
+            r_.shutdown()
+        diff = np.abs(lg.astype(np.int32) - lc.astype(np.int32)).max(-1)
+        within = float(np.mean(diff <= 2))
+        log(f"phase26 {name} stress:4 {W}x{H} x{frames} frames cuda vs cpu: "
+            f"{within * 100:.3f}% of LDR pixels within 2/255, mean |d| {float(diff.mean()):.4f}, "
+            f"max {int(diff.max())} ({time.perf_counter() - t0:.1f} s on {card} and the host)")
+        assert lg.shape == (H, W, 3), lg.shape
+        assert within >= 0.99, (name, within)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs "
@@ -1647,6 +2041,23 @@ def main():
     launches_pt = pt["launches"]
     phase_golden(Renderer, Config)
 
+    # phases 24-26 come last: their torch.profiler traces must not precede
+    # phase 16's, which read kernel times from traces of their own
+    # ---- phase 24: env lights + animated scene, the flagship at 1080p ------
+    card = smi.stdout.strip().splitlines()[0]
+    env_path = write_sky()
+    ea = phase_env_anim(Renderer, Config, reset_counts, counts, time_passes, median_ms, card,
+                        env_path, n_frames)
+    launches_ea = ea["launches"]
+    ea_k = phase_env_anim_kernels(ea.pop("cap"), bench_k2k4, card)
+
+    # ---- phase 25: TAA upscaling at full width ----------------------------
+    tu = phase_taau(Renderer, Config, counts, time_passes, median_ms, card, env_path, n_frames,
+                    ea["ms"], bench_raster)
+
+    # ---- phase 26: this slice's configurations, CUDA against CPU ----------
+    phase_env_anim_cuda_vs_cpu(Renderer, Config, env_path, card)
+
     assert not late_failures, late_failures
     jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not jax_mods, f"the port loaded jax: {jax_mods[:5]}"
@@ -1664,6 +2075,7 @@ def main():
                     launches_flagship_path=launches_fl[key],
                     launches_flagship_k6_route=launches_k6[key],
                     launches_ibl_combined_regir_path=launches_ib[key],
+                    launches_env_anim_path=launches_ea[key], launches_taau_path=tu["launches"][key],
                     launches_pt=launches_pt[key], launches_bench_wkernels=launches_wk[key],
                     **extra)
 
@@ -1686,17 +2098,22 @@ def main():
     kernels_line = {"kernels": [
         entry("raster_resolve_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
               "hobbyrenderer_tpu/ops/raster_pallas.py:212", "K1", attr_err, k1_ms, k1_plain_ms,
-              k1_bound, unit_items=rk.UNIT_ITEMS, calls=[raster_summary(x) for x in k1_rows]),
+              k1_bound, unit_items=rk.UNIT_ITEMS, calls=[raster_summary(x) for x in k1_rows],
+              taau_internal_call=tu["k1"]),
         entry("restir_candidates", "hobbyrenderer_tpu_torch/csrc/restir_candidates.cu",
               "hobbyrenderer_tpu/ops/restir_pallas.py:65", "K2", k2_err, k2_ms, k2_plain_ms,
               k2_bound, issue_ms=k2_issue_ms, issue_clock_mhz=clock_mhz,
-              sass_per_candidate=k2_sass.get("per_candidate"), regir_table=k2_regir),
+              sass_per_candidate=k2_sass.get("per_candidate"), regir_table=k2_regir,
+              env_light_pool={k: ea_k["k2"][k] for k in ("equal", "repeat_equal", "ms",
+                                                         "plain_ms", "bound_ms", "bound_by",
+                                                         "max_abs_err", "directional_slots")}),
         entry("bvh16_walk", "hobbyrenderer_tpu_torch/csrc/bvh16_walk.cu",
               "hobbyrenderer_tpu/ops/wtrace.py:71", "K3", k3_main["err"], k3_main["ms"],
               k3_main["plain_ms"], k3_main["bound"], rays=k3_main["rays"],
               walks={x["name"]: [x["rays"], x["ms"], x["plain_ms"], x["bound"][0]]
                      for x in k3_rows + pt["k3_rows"]},
-              gsteps_per_s={x["name"]: x["gsteps"] for x in k3_rows + pt["k3_rows"]}),
+              gsteps_per_s={x["name"]: x["gsteps"] for x in k3_rows + pt["k3_rows"]},
+              refitted_walks=ea_k["k3"]),
         entry("beam_any_hit_tiles", "hobbyrenderer_tpu_torch/csrc/beam_any_hit.cu",
               "hobbyrenderer_tpu/ops/beam.py:68", "K4", k4_err, k4_main["ms"],
               k4_main["plain_ms"], (k4_main["bound_ms"], k4_main["bound_by"]),
@@ -1704,7 +2121,7 @@ def main():
                              bound_by=x["bound_by"], active_lanes=x["active"],
                              live_lanes=x["live"], max_steps=x["max_steps"],
                              mismatches=x["mismatches"])
-                     for k, x in k4_rows.items()}),
+                     for k, x in k4_rows.items()}, refitted_calls=ea_k["k4"]),
         entry("raster_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
               "hobbyrenderer_tpu/ops/raster_pallas.py:148", "K5", k5_main["attr_max_err"],
               k5_main["ms"], k5_main["plain_ms"], (k5_main["bound_ms"], k5_main["bound_by"]),
@@ -1725,6 +2142,9 @@ def main():
         wk_entry("int_fetch", "K8", "scripts/bench_wkernels.py:72", ["K8 Ip=4480", "K8 Ip=512"]),
         wk_entry("int_fetch_hc", "K9", "scripts/bench_wkernels.py:100", ["K9 Ip=4480"])]}
     log("path tracer 960x540: " + json.dumps({k: pt[k] for k in ("setup", "ms", "msamples")}))
+    log(f"env + animated flagship 1080p on {card}: " + json.dumps(
+        {"setup_s": ea["setup_s"], "ms": ea["ms"], "taau_ms": tu["ms"], "busy": ea["busy"],
+         "host_syncs": ea["syncs"], "refit": ea_k["refit"]}))
     log(f"chip_smoke total seconds: {time.perf_counter() - t_start:.1f}")
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

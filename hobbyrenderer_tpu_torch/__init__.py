@@ -1,11 +1,12 @@
 """hobbyrenderer_tpu_torch — the PyTorch + CUDA port of hobbyrenderer_tpu.
 
 The JAX package (``hobbyrenderer_tpu``) stays the reference. This package runs
-the Normal-mode deferred frame (simple direct lighting or ReSTIR DI with
-denoising, no indirect mode, TAA and two-phase occlusion culling on) with
-PyTorch on an explicit device; the TPU kernels on that path are hand-written
-CUDA C++ for Hopper (``csrc/``), each beside a plain PyTorch version that
-runs on CPU tensors.
+the deferred frame in every (mode, direct, indirect) pair, the reference path
+tracer, environment maps, animated scenes (refitted on the device) and TAA
+upscaling with PyTorch on an explicit device; the TPU kernels are
+hand-written CUDA C++ for Hopper (``csrc/``), each beside a plain PyTorch
+version that runs on CPU tensors. Texture streaming, the debug views and
+multi-GPU are not ported yet (ROADMAP.md, Queue 1).
 
 The port keeps its own copies of the host modules it needs and imports
 nothing of the JAX package: ``config``, ``scene.{scene,cooker,procedural,

@@ -15,11 +15,14 @@ Usage:
         --direct-mode restir --indirect-mode combined --regir   # SHARC + ReGIR
     python -m hobbyrenderer_tpu_torch --scene stress --width 960 --height 540 \
         --mode path_tracer --frames 8             # the reference path tracer
+    python -m hobbyrenderer_tpu_torch --scene stress --frames 8 --direct-mode restir \
+        --envmap sky.hdr --env-lights 64 --render-scale 0.5   # env lights, TAA upscaling
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 
@@ -38,8 +41,9 @@ def main(argv=None):
                         "lighting) | ibl (the Normal frame with the IBL ambient doubled) "
                         "| path_tracer")
     p.add_argument("--render-scale", dest="render_scale", type=float, default=1.0,
-                   help="internal resolution scale; != 1 is TAA upscaling, not ported "
-                        "(the path tracer renders at the internal resolution)")
+                   help="internal resolution scale; < 1 renders smaller and TAA upscales "
+                        "to the output size (the path tracer renders at the internal "
+                        "resolution)")
     p.add_argument("--frames", type=int, default=1)
     p.add_argument("--screenshot", type=str, default=None)
     p.add_argument("--cache-dir", type=str, default=".hr_cache")
@@ -67,7 +71,28 @@ def main(argv=None):
                         "shells (the default); grid = a uniform grid over the scene's bounds")
     p.add_argument("--pt-spp", dest="pt_spp", type=int, default=1,
                    help="path tracer: samples per pixel per frame, batched into one wavefront")
+    p.add_argument("--envmap", type=str, default=None,
+                   help="equirect environment map (.hdr / .png / .jpg / .dds)")
+    p.add_argument("--env-lights", dest="env_lights", type=int, default=0,
+                   help="turn the envmap into N directional lights for ReSTIR DI / the "
+                        "path tracer's NEE (with --direct-mode restir or --mode path_tracer)")
+    p.add_argument("--irradiance", type=str, default=None,
+                   help="prebaked irradiance map (equirect .hdr / .dds)")
+    p.add_argument("--radiance", type=str, default=None,
+                   help="prebaked prefiltered radiance map (equirect)")
+    p.add_argument("--brdflut", type=str, default=None,
+                   help="authored split-sum BRDF LUT image (default: the analytic fit)")
+    p.add_argument("--execute-per-pass", action="store_true",
+                   help="wait for and time each pass on its own (rows in --timings)")
+    p.add_argument("--tune-file", dest="tune_file", type=str, default=None, metavar="PATH",
+                   help="JSON of RenderSettings knobs, re-read when it changes; a change "
+                        "applies from the next frame")
     p.add_argument("--describe-graph", action="store_true")
+    p.add_argument("--export-graph", type=str, default=None, metavar="PATH",
+                   help="write the pass graph with the last frame's resource shapes (and "
+                        "per-pass ms under --execute-per-pass) as JSON")
+    p.add_argument("--profile-dir", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run (Chrome trace JSON) here")
     p.add_argument("--timings", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
@@ -78,15 +103,32 @@ def main(argv=None):
                  direct_mode=a.direct_mode, indirect_mode=a.indirect_mode,
                  restir_quality=a.restir_quality, denoiser=a.denoiser, regir=a.regir,
                  regir_mode=a.regir_mode,
-                 specular_indirect=a.specular_indirect,
+                 specular_indirect=a.specular_indirect, envmap=a.envmap,
+                 env_lights=a.env_lights, irradiance=a.irradiance, radiance=a.radiance,
+                 brdflut=a.brdflut, execute_per_pass=a.execute_per_pass, tune_file=a.tune_file,
                  keep_hdr=bool(a.screenshot and a.screenshot.lower().endswith(".hdr")))
     from hobbyrenderer_tpu_torch.renderer import Renderer
     r = Renderer(cfg, device=a.device)
     if a.describe_graph:
         print(r.describe_graph())
-    stats = r.run(num_frames=a.frames, screenshot=a.screenshot)
+    prof = contextlib.nullcontext()
+    if a.profile_dir:
+        import os
+        import torch
+        os.makedirs(a.profile_dir, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if r.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(
+            activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                a.profile_dir))
+    with prof:
+        stats = r.run(num_frames=a.frames, screenshot=a.screenshot)
     stats.update(r.stats())
     print(json.dumps(stats))
+    if a.export_graph:
+        with open(a.export_graph, "w") as f:
+            json.dump(r.export_graph(), f, indent=1)
     if a.timings:
         print(r.timings())
     r.shutdown()

@@ -12,10 +12,14 @@ API:
   and never write into a tensor they were given, so a pass that stores one
   tensor under two names — TAA's hdr and taa_history — cannot have either
   overwritten by a later pass),
-- describe(): the pass/resource schedule."""
+- execute_per_pass(): the same frame with a device synchronize after each
+  pass and each pass timed (``last_pass_timings``),
+- describe() and export_json(): the pass/resource schedule, the latter with
+  each resource's shape from the last run."""
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Sequence, Set
 
@@ -35,6 +39,17 @@ class FrameContext:
 
 class AccessError(RuntimeError):
     pass
+
+
+def _describe_value(v) -> Any:
+    """Compact shape/dtype summary of a resource: one string for a tensor,
+    a list for a tuple of them, repr for anything else."""
+    if isinstance(v, torch.Tensor):
+        return f"{tuple(v.shape)}:{str(v.dtype).replace('torch.', '')}"
+    if isinstance(v, (tuple, list)):
+        descs = [_describe_value(x) for x in v]
+        return descs[0] if len(descs) == 1 else descs
+    return repr(v)
 
 
 class _GuardedResources:
@@ -96,6 +111,8 @@ class RenderGraph:
 
     def __init__(self):
         self.passes: List[RenderPass] = []
+        self.last_run_log: List[Dict[str, Any]] = []
+        self.last_pass_timings: List[Dict[str, Any]] = []
 
     def add(self, p: RenderPass):
         if any(q.name == p.name for q in self.passes):
@@ -121,20 +138,61 @@ class RenderGraph:
         """Run all enabled passes. ``frame_state`` seeds the persistent
         resources and is updated in place with their new values; returns the
         requested outputs."""
+        return self._run(ctx, frame_state, outputs, None)
+
+    def execute_per_pass(self, ctx: FrameContext, frame_state: Dict[str, Any],
+                         outputs: Sequence[str]) -> Dict[str, Any]:
+        """execute(), with each pass waited for and timed on its own: CUDA
+        events around the pass and a synchronize on the card, the host clock
+        on the CPU. The timings land in ``last_pass_timings`` [{pass, ms}];
+        what each pass computes is unchanged."""
+        timings = []
+
+        def timed(name, run):
+            if ctx.gpu.device.type == "cuda":
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                run()
+                e1.record()
+                e1.synchronize()
+                ms = e0.elapsed_time(e1)
+            else:
+                t0 = time.perf_counter()
+                run()
+                ms = (time.perf_counter() - t0) * 1e3
+            timings.append({"pass": name, "ms": ms})
+
+        result = self._run(ctx, frame_state, outputs, timed)
+        self.last_pass_timings = timings
+        return result
+
+    def _run(self, ctx, frame_state, outputs, around):
         store: Dict[str, Any] = dict(frame_state)
+        log: List[Dict[str, Any]] = []
         for p in self.passes:
             if not p.enabled:
+                log.append({"pass": p.name, "enabled": False})
                 continue
             guard = _GuardedResources(store, set(p.reads), set(p.writes), p.name)
-            # names the pass's ops in torch.profiler traces (per-pass time)
-            with torch.profiler.record_function(p.name):
-                p.fn(ctx, guard)
+
+            def run(p=p, guard=guard):
+                # names the pass's ops in torch.profiler traces (per-pass time)
+                with torch.profiler.record_function(p.name):
+                    p.fn(ctx, guard)
+            if around is None:
+                run()
+            else:
+                around(p.name, run)
             missing = p.writes - set(guard.written) - set(store)
             if missing:
                 raise AccessError(
                     f"pass '{p.name}' declared writes {sorted(missing)} "
                     f"but never wrote them")
             store.update(guard.written)
+            log.append({"pass": p.name, "enabled": True, "wrote": sorted(guard.written),
+                        "shapes": {k: _describe_value(v) for k, v in guard.written.items()}})
+        self.last_run_log = log
         result = {}
         for name in outputs:
             if name not in store:
@@ -152,3 +210,20 @@ class RenderGraph:
             lines.append(f"[{flag}] {p.name:24s} reads={sorted(p.reads)} "
                          f"writes={sorted(p.writes)} persistent={sorted(p.persistent)}")
         return "\n".join(lines)
+
+    def export_json(self) -> Dict[str, Any]:
+        """Machine-readable graph dump: schedule order, declared access,
+        enable state, each resource's shape and dtype from the last run, and
+        each pass's ms from the last execute_per_pass run."""
+        shape_of: Dict[str, Any] = {}
+        for entry in self.last_run_log:
+            shape_of.update(entry.get("shapes", {}))
+        ms_of = {t["pass"]: t["ms"] for t in self.last_pass_timings}
+        passes = []
+        for i, p in enumerate(self.passes):
+            passes.append({"order": i, "name": p.name, "enabled": p.enabled,
+                           "reads": sorted(p.reads), "writes": sorted(p.writes),
+                           "persistent": sorted(p.persistent),
+                           **({"device_ms": round(ms_of[p.name], 3)}
+                              if p.name in ms_of else {})})
+        return {"passes": passes, "resources": shape_of}

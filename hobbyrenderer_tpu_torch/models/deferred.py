@@ -29,7 +29,14 @@ combined. ``regir`` makes RTXDI draw its candidates from a per-frame ReGIR
 cell table (ops/regir.py) instead of the presample tiles.
 
 The IBL mode is the Normal graph with the IBL ambient doubled (in
-DeferredLighting and Transparent). NormalBasic replaces SunShadow with
+DeferredLighting and Transparent). With an environment map (SceneGPU.env_map)
+the IBL pass reads its load-time SH projection (or a prebaked irradiance
+map's), and the Sky pass, the ambient's reflections, SpecularIndirect's
+misses and Transparent's refracted misses sample it; with ``env_as_lights``
+the environment rides the light list as directional lights instead, and the
+ambient and the reflection misses drop it. With an output size above the
+render size, TAA upscales (ops/taa.py::taau_resolve) and AutoExposure,
+Bloom and Tonemap run at the output size. NormalBasic replaces SunShadow with
 ShadowCSM (cascaded shadow maps times screen-space contact shadows,
 ops/csm.py and ops/sss.py) and runs none of the ray-traced lighting passes
 (RTXDI, RTXDIGI, SHARC, SpecularIndirect). ``pass_gates`` holds these
@@ -61,6 +68,7 @@ from hobbyrenderer_tpu_torch.ops import csm as csmops
 from hobbyrenderer_tpu_torch.ops import culling as cullops
 from hobbyrenderer_tpu_torch.ops import ddgi as ddgiops
 from hobbyrenderer_tpu_torch.ops import denoise as dnops
+from hobbyrenderer_tpu_torch.ops import envmap as envops
 from hobbyrenderer_tpu_torch.ops import hzb as hzbops
 from hobbyrenderer_tpu_torch.ops import ibl as iblops
 from hobbyrenderer_tpu_torch.ops import post as postops
@@ -141,7 +149,8 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
                          denoiser_profile: str = "relax",
                          specular_indirect: bool = False, with_rt_shadows: bool = True,
                          regir: bool = False, regir_mode: str = "onion",
-                         scene_bounds=None) -> RenderGraph:
+                         scene_bounds=None, env_as_lights: bool = False,
+                         out_width: int = None, out_height: int = None) -> RenderGraph:
     g = RenderGraph()
     gates = pass_gates(mode, direct_mode, indirect_mode, specular_indirect, with_rt_shadows)
     use_restir, use_restir_gi = gates["use_restir"], gates["use_restir_gi"]
@@ -156,6 +165,12 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
     csm_max_distance = float(min(max(2.0 * scene_radius, 20.0), 400.0))
     h0, w0, hzb_levels = hzbops.hzb_sizes(width, height)
     hzb_eff = hzbops.hzb_effective_size(width, height)
+    ow, oh = out_width or width, out_height or height
+
+    def env_fn(ctx):
+        """The environment map's lookup, or None (the procedural sky)."""
+        env = ctx.gpu.env_map
+        return None if env is None else (lambda d: envops.sample_equirect(env, d))
 
     @g.add
     @render_pass("Culling", reads=("hzb",),
@@ -319,9 +334,17 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
     @g.add
     @render_pass("IBL", reads=(), writes=("sky_irradiance",))
     def _ibl(ctx, res):
-        """Per-frame SH projection of the procedural sky."""
-        res["sky_irradiance"] = iblops.build_sky_irradiance(_scene_sun_dir(ctx),
-                                                            ctx.settings)
+        """The ambient's SH irradiance: zero when the environment rides the
+        light list, the environment map's (projected at load), else the
+        procedural sky's, projected each frame."""
+        if env_as_lights:
+            res["sky_irradiance"] = torch.zeros((9, 3), dtype=torch.float32,
+                                                device=ctx.gpu.device)
+        elif ctx.gpu.env_sh is not None:
+            res["sky_irradiance"] = ctx.gpu.env_sh
+        else:
+            res["sky_irradiance"] = iblops.build_sky_irradiance(_scene_sun_dir(ctx),
+                                                                ctx.settings)
 
     @g.add
     @render_pass("RTXDI", reads=("gbuffer", "restir_reservoir"),
@@ -558,9 +581,11 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         so = {}
         spec, w_blend, st = specops.specular_indirect(
             ctx.gpu, ctx.rt, res["gbuffer"], ctx.vc, ctx.settings, res["spec_state"],
-            ctx.vc["frame_index"], sun_dir=_scene_sun_dir(ctx),
+            ctx.vc["frame_index"], env_fn=None if env_as_lights else env_fn(ctx),
+            sun_dir=_scene_sun_dir(ctx),
             sharc_cache=res["sharc_cache"] if use_sharc else None,
-            skip_pool_emissive=use_restir, sky_sh=res["sky_irradiance"],
+            skip_pool_emissive=use_restir, include_env_miss=not env_as_lights,
+            sky_sh=res["sky_irradiance"],
             ibl_scale=ctx.settings.ibl_intensity * ctx.settings.ambient_scale,
             half_rate=rq.spec_half_rate, stats_out=so)
         res["spec_indirect"] = spec
@@ -600,10 +625,15 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
                                                gb.albedo, metal, rough,
                                                shadow_fn=shadow_fn)
         ibl_scale = ctx.settings.ibl_intensity * ctx.settings.ambient_scale * ibl_mult
-        ambient = iblops.ibl_ambient(res["sky_irradiance"], gb.normal, v, gb.albedo,
-                                     metal, rough, _scene_sun_dir(ctx), ctx.settings,
-                                     intensity=ibl_scale,
-                                     spec_suppress=res["spec_weight"] if use_spec else None)
+        if env_as_lights:
+            # the lights carry the environment (diffuse and specular)
+            ambient = torch.zeros_like(gb.albedo)
+        else:
+            ambient = iblops.ibl_ambient(
+                res["sky_irradiance"], gb.normal, v, gb.albedo, metal, rough,
+                _scene_sun_dir(ctx), ctx.settings, intensity=ibl_scale, env_fn=env_fn(ctx),
+                spec_suppress=res["spec_weight"] if use_spec else None,
+                brdf_lut=ctx.gpu.brdf_lut)
         hdr = direct + ambient + gb.emissive
         if use_spec:
             hdr = hdr + res["spec_indirect"]
@@ -622,7 +652,10 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
     def _sky(ctx, res):
         gb = res["gbuffer"]
         vdir = skyops.view_dirs_from_pixels(ctx.vc, height, width)
-        sky = skyops.sky_radiance_fast(vdir, _scene_sun_dir(ctx), ctx.settings)
+        if ctx.gpu.env_map is not None:
+            sky = envops.sample_equirect(ctx.gpu.env_map, vdir)
+        else:
+            sky = skyops.sky_radiance_fast(vdir, _scene_sun_dir(ctx), ctx.settings)
         res["hdr"] = torch.where(gb.valid[..., None], res["hdr"], sky)
 
     @g.add
@@ -635,6 +668,7 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
             width=width, height=height,
             transparent_capacity=transparent_capacity,
             sun_dir=_scene_sun_dir(ctx), sky_sh=res["sky_irradiance"],
+            env_as_lights=env_as_lights, env_fn=env_fn(ctx),
             ibl_scale=ctx.settings.ibl_intensity * ctx.settings.ambient_scale * ibl_mult)
 
     if not has_transparent:
@@ -645,8 +679,16 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
                  writes=("hdr", "taa_history", "taa_valid"),
                  persistent=("taa_history", "taa_valid"))
     def _taa(ctx, res):
-        out = taaops.taa_resolve(res["hdr"], res["taa_history"], res["gbuffer"].motion,
-                                 res["taa_valid"], ctx.settings)
+        """Temporal accumulation; upscaling to the output size when it
+        differs from the render size (the post passes then run at the
+        output size)."""
+        if (ow, oh) != (width, height):
+            out = taaops.taau_resolve(res["hdr"], res["taa_history"], res["gbuffer"].motion,
+                                      res["taa_valid"], ctx.settings, ctx.vc["jitter"],
+                                      oh, ow)
+        else:
+            out = taaops.taa_resolve(res["hdr"], res["taa_history"], res["gbuffer"].motion,
+                                     res["taa_valid"], ctx.settings)
         # one tensor under both names: later passes only read it (Bloom
         # returns a new tensor), so the history is never overwritten
         res["hdr"] = out
@@ -677,8 +719,10 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
 
 def initial_frame_state(width: int, height: int, device, use_restir: bool = False,
                         indirect_mode: str = "none", scene_bounds=None,
-                        specular_indirect: bool = False) -> Dict[str, object]:
-    """Persistent resources seed: exposure, HZB, TAA history; under ReSTIR
+                        specular_indirect: bool = False, out_width: int = None,
+                        out_height: int = None) -> Dict[str, object]:
+    """Persistent resources seed: exposure, HZB, TAA history (at the output
+    size, which TAA upscaling makes larger than the render size); under ReSTIR
     the light reservoirs and the denoiser history; per ``indirect_mode`` the
     SHARC cache (and for "combined" its half-res denoiser history), the SSGI
     denoiser history, the DDGI volume (fitted to ``scene_bounds``) or the GI
@@ -688,8 +732,8 @@ def initial_frame_state(width: int, height: int, device, use_restir: bool = Fals
     state = {
         "exposure": torch.tensor(1.0, dtype=torch.float32, device=device),
         "hzb": torch.zeros((levels, h0, w0), dtype=torch.float32, device=device),
-        "taa_history": torch.zeros((height, width, 3), dtype=torch.float32,
-                                   device=device),
+        "taa_history": torch.zeros((out_height or height, out_width or width, 3),
+                                   dtype=torch.float32, device=device),
         "taa_valid": False,
     }
     if use_restir:
@@ -713,14 +757,22 @@ def initial_frame_state(width: int, height: int, device, use_restir: bool = Fals
 
 
 class DeferredRenderer:
-    """Builds the graph and carries the persistent FrameState across frames."""
+    """Builds the graph and carries the persistent FrameState across frames.
+    ``out_width`` / ``out_height``: the output size (TAA upscales to it);
+    ``execute_per_pass``: each pass runs and is timed on its own
+    (RenderGraph.execute_per_pass, timings in ``graph.last_pass_timings``).
+    ``keep`` names resources to keep from each frame in ``last_resources``."""
 
     def __init__(self, gpu, width: int, height: int, rt, shadow_scale: int,
                  mode: str = RenderingMode.NORMAL, direct_mode: str = "simple",
                  indirect_mode: str = "none", restir_quality: str = "balanced",
                  denoiser_profile: str = "relax", specular_indirect: bool = False,
-                 regir: bool = False, regir_mode: str = "onion"):
+                 regir: bool = False, regir_mode: str = "onion", env_as_lights: bool = False,
+                 out_width: int = None, out_height: int = None,
+                 execute_per_pass: bool = False):
         self.width, self.height = width, height
+        self.out_width, self.out_height = out_width or width, out_height or height
+        self.execute_per_pass = execute_per_pass
         self.rt = rt
         g = pass_gates(mode, direct_mode, indirect_mode, specular_indirect, rt is not None)
         self.use_restir, self.use_restir_gi = g["use_restir"], g["use_restir_gi"]
@@ -739,9 +791,11 @@ class DeferredRenderer:
             indirect_mode=indirect_mode, restir_quality=restir_quality,
             denoiser_profile=denoiser_profile, scene_radius=m["scene_radius"],
             specular_indirect=specular_indirect, with_rt_shadows=rt is not None,
-            regir=regir, regir_mode=regir_mode, scene_bounds=m["scene_bounds"])
+            regir=regir, regir_mode=regir_mode, scene_bounds=m["scene_bounds"],
+            env_as_lights=env_as_lights, out_width=self.out_width, out_height=self.out_height)
         self.state = initial_frame_state(width, height, gpu.device, self.use_restir,
-                                         indirect_mode, m["scene_bounds"], specular_indirect)
+                                         indirect_mode, m["scene_bounds"], specular_indirect,
+                                         self.out_width, self.out_height)
         self.last_stats = {}
         self.keep = ()              # extra resource names to keep per frame
         self.last_resources = {}
@@ -768,7 +822,8 @@ class DeferredRenderer:
             outputs += list(SHARCQ_STATS)
         if self.use_spec:
             outputs += list(SPEC_STATS)
-        o = self.graph.execute(ctx, self.state, outputs=outputs + list(self.keep))
+        run = self.graph.execute_per_pass if self.execute_per_pass else self.graph.execute
+        o = run(ctx, self.state, outputs=outputs + list(self.keep))
         self.last_resources = {k: o[k] for k in self.keep}
         self.last_stats = {"raster_overflow": o["raster_overflow"],
                            "visible_pairs": o["visible_count"],

@@ -14,11 +14,12 @@ TPU wavefront compaction, ported as it is): the capacities follow from the
 lane count on the host, the live counts stay on the device, and nothing in
 a bounce waits for the device.
 
-Not ported (the renderer refuses them, each naming its slice): env maps and
-env-as-lights, texture streaming, animated scenes (refit_scene_rt). The
-SceneRT must carry the light pool and its emissive index (build_scene_rt
-with the uploaded scene does); the reference's pool-less NEE branch is not
-ported."""
+A miss reads the environment map where the scene has one (with
+``env_as_lights`` only on the transports NEE cannot reach), else the
+procedural sky. Not ported (the renderer refuses it, naming its slice):
+texture streaming. The SceneRT must carry the light pool and its emissive
+index (build_scene_rt with the uploaded scene does); the reference's
+pool-less NEE branch is not ported."""
 
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 
 from hobbyrenderer_tpu_torch.models.scene_rt import SceneRT, fetch_hit_attrs
 from hobbyrenderer_tpu_torch.ops import atmosphere as atm
+from hobbyrenderer_tpu_torch.ops import envmap as envops
 from hobbyrenderer_tpu_torch.ops import lights as lightops
 from hobbyrenderer_tpu_torch.ops import post as postops
 from hobbyrenderer_tpu_torch.ops import sampling as smp
@@ -132,7 +134,7 @@ def _add(stats, key, value):
 
 
 def _bounce(gpu, rt: SceneRT, vc, settings, height: int, p: _Paths, bounce: int, sun_dir,
-            rr_start: int, sky_fn, stats) -> _Paths:
+            rr_start: int, sky_fn, env_as_lights: bool, stats) -> _Paths:
     """One bounce of every lane (the reference's bounce_body)."""
     o, d, radiance, throughput, active, inside, sigma_t, prev_pdf, pix, frame = p
     dim = 1 + bounce * 8
@@ -152,6 +154,13 @@ def _bounce(gpu, rt: SceneRT, vc, settings, height: int, p: _Paths, bounce: int,
     # sky on a miss; the sun disk on the primary ray only (NEE covers it later)
     if sky_fn is not None:
         sky = sky_fn(d, bounce)
+    elif gpu.env_map is not None:
+        sky = envops.sample_equirect(gpu.env_map, d)
+        if env_as_lights:
+            # NEE's directional set carries the environment, except on the
+            # transports it cannot reach (primary rays, transmission, alpha
+            # pass-through: prev_pdf <= 0)
+            sky = torch.where((prev_pdf <= 0.0)[..., None], sky, 0.0)
     else:
         sky = skyops.sky_radiance(d, sun_dir, settings, with_sun_disk=bounce == 0)
     radiance = radiance + torch.where(miss[..., None], throughput * sky, 0.0)
@@ -344,8 +353,8 @@ def _compact(p: _Paths, b: int, cap: int, stats):
 
 
 def trace_paths(gpu, rt: SceneRT, vc, settings, height: int, width: int, accum_index: int,
-                max_bounces: int = 8, rr_start: int = 2, sky_fn=None, spp: int = 1,
-                with_stats: bool = False):
+                max_bounces: int = 8, rr_start: int = 2, sky_fn=None,
+                env_as_lights: bool = False, spp: int = 1, with_stats: bool = False):
     """spp samples per pixel in one wavefront -> (H*W, 3) mean radiance;
     with ``with_stats`` also {"pt_dropped_lanes", "rt_k3_lanes_pt",
     "rt_k3_capped_pt", "rt_k3_lanes_pt_nee", "rt_k3_capped_pt_nee"} as
@@ -381,7 +390,7 @@ def trace_paths(gpu, rt: SceneRT, vc, settings, height: int, width: int, accum_i
         # named ranges: profile_frame.py splits each bounce's kernel time
         with torch.profiler.record_function(f"PT bounce {b}"):
             return _bounce(gpu, rt, vc, settings, height, p, b, sun_dir, rr_start, sky_fn,
-                           stats)
+                           env_as_lights, stats)
 
     use_compact = RS >= COMPACT_MIN_LANES and max_bounces > COMPACT_START
     if not use_compact:
@@ -420,9 +429,11 @@ class PathTracerRenderer:
 
     graph = None          # no pass graph: the frame is one trace_paths call
 
-    def __init__(self, gpu, width: int, height: int, config, rt: SceneRT):
+    def __init__(self, gpu, width: int, height: int, config, rt: SceneRT,
+                 env_as_lights: bool = False):
         self.width, self.height = width, height
         self.rt = rt
+        self.env_as_lights = env_as_lights
         dev = gpu.mat_f.device
         self.accum = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
         self.num_accum = 0
@@ -447,7 +458,8 @@ class PathTracerRenderer:
         # num_accum counts samples; the RNG frame index is the spp-frame ordinal
         sample, stats = trace_paths(gpu, self.rt, vc, settings, self.height, self.width,
                                     self.num_accum // self.spp, self.max_bounces,
-                                    self.rr_start, spp=self.spp, with_stats=True)
+                                    self.rr_start, env_as_lights=self.env_as_lights,
+                                    spp=self.spp, with_stats=True)
         sample = sample.reshape(self.height, self.width, 3)
         w = np.float32(self.spp) / (np.float32(self.num_accum) + np.float32(self.spp))
         self.accum = self.accum * float(np.float32(1.0) - w) + sample * float(w)

@@ -1,13 +1,14 @@
-"""Ray-tracing scene snapshot for the traced passes (SunShadow, RTXDI,
-DDGI).
+"""Ray-tracing scene for the traced passes and the path tracer.
 
 Counterpart of hobbyrenderer_tpu/models/pathtracer.py::_subdivide_large /
-build_scene_rt / _fetch_hit_attrs (pathtracer.py:113-157, 203-236), cut
-down to what those passes need: the LOD0 world-space triangles (oversized
-ones subdivided), their 4-wide BVH and beam table (K4), the split tables,
-the per-triangle vertex / instance / material tables, and with the
-uploaded scene the 16-wide BVH (K3), the light pool and the emissive
-index. ``fetch_hit_attrs`` interpolates a hit's attributes from them."""
+build_scene_rt / refit_scene_rt / _fetch_hit_attrs (pathtracer.py:113-190,
+203-236), cut down to what those passes need: the LOD0 world-space
+triangles (oversized ones subdivided), their 4-wide BVH and beam table (K4),
+the split tables, the per-triangle vertex / instance / material tables, the
+instances' inverse load-time transforms, and with the uploaded scene the
+16-wide BVH (K3), the light pool and the emissive index. ``refit_scene_rt``
+moves it all with the instances on the device each frame an instance moved;
+``fetch_hit_attrs`` interpolates a hit's attributes."""
 
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from hobbyrenderer_tpu_torch.utils import tmath as tm
 
 
 class SceneRT(NamedTuple):
-    bvh: bvhops.BVH            # host (numpy) tree
+    bvh: bvhops.BVH            # the 4-wide tree, its tensors on the device
     btable: torch.Tensor       # (I+L, 128) f32 beam table on the device
     split_to_orig: torch.Tensor  # (Ts,) split tri -> original tri
     split_bary: torch.Tensor   # (Ts, 3, 2) original (u, v) of split verts
@@ -36,6 +37,7 @@ class SceneRT(NamedTuple):
     tri_gv: torch.Tensor = None    # (T, 3) global vertex ids of the original tris
     tri_inst: torch.Tensor = None  # (T,) instance id
     tri_mat: torch.Tensor = None   # (T,) material id
+    inst_inv0: torch.Tensor = None  # (N, 4, 4) f32 inverse world transform at load
 
 
 RT_FIELDS = ("btable", "split_to_orig", "split_bary", "split_world0")
@@ -99,7 +101,9 @@ def build_scene_rt(scene, device, gpu=None) -> SceneRT:
     host = dict(btable=beamops.beam_table(bvh.table), split_to_orig=split_to_orig,
                 split_bary=split_bary, split_world0=split_verts,
                 tri_gv=np.concatenate(gvs, 0), tri_inst=np.concatenate(insts, 0),
-                tri_mat=np.concatenate(mats, 0))
+                tri_mat=np.concatenate(mats, 0),
+                inst_inv0=np.stack([np.linalg.inv(scene.nodes[I.node].world)
+                                    for I in scene.instances]).astype(np.float32))
     if gpu is None:
         return scene_rt_from_numpy(host, device, bvh=bvh)
     host["bvh16"] = b16ops.build_bvh16_arrays(split_verts)
@@ -115,7 +119,7 @@ def build_scene_rt(scene, device, gpu=None) -> SceneRT:
 def scene_rt_from_numpy(d: Dict[str, Any], device, bvh=None) -> SceneRT:
     """A SceneRT as numpy (``{name: array}``, the JAX SceneRT's leaves:
     btable, split_to_orig, split_bary, split_world0; optionally tri_gv /
-    tri_inst / tri_mat, bvh_table /
+    tri_inst / tri_mat / inst_inv0, bvh_table /
     bvh_order / bvh_root_box; ``bvh16`` as a dict of the JAX BVH16's table
     (transposed (128, I+L) as the JAX package stores it, or row-major),
     order, root_box, recs, slot_of; ``lights`` as a dict of the LightPool's
@@ -131,7 +135,7 @@ def scene_rt_from_numpy(d: Dict[str, Any], device, bvh=None) -> SceneRT:
                          order=np.asarray(d["bvh_order"], np.int32),
                          root_box=np.asarray(d["bvh_root_box"], np.float32),
                          num_tris=int(np.asarray(d["split_to_orig"]).shape[0]))
-    extra = {k: t(d[k]) for k in TABLE_FIELDS if d.get(k) is not None}
+    extra = {k: t(d[k]) for k in TABLE_FIELDS + ("inst_inv0",) if d.get(k) is not None}
     if d.get("bvh16") is not None:
         b = dict(d["bvh16"])
         if b["table"].shape[0] == b16ops.ROW_W and b["table"].shape[1] != b16ops.ROW_W:
@@ -144,7 +148,29 @@ def scene_rt_from_numpy(d: Dict[str, Any], device, bvh=None) -> SceneRT:
             n_analytic=int(lp["n_analytic"]), n_total=int(lp["n_total"]),
             **{k: t(lp[k]) for k in POOL_FIELDS})
         extra["em_index"] = t(d["em_index"])
-    return SceneRT(bvh=bvh, **{k: t(d[k]) for k in RT_FIELDS}, **extra)
+    return SceneRT(bvh=None if bvh is None else bvhops.bvh_to_device(bvh, device),
+                   **{k: t(d[k]) for k in RT_FIELDS}, **extra)
+
+
+def refit_scene_rt(rt: SceneRT, inst_transform) -> SceneRT:
+    """The per-frame update of moved instances, on the device: every split
+    triangle moves by its instance's W_now @ W_load^-1 (inst_transform
+    (N, 4, 4): the current world matrices, SceneGPU.inst_transform), then
+    the 4-wide tree and its beam table, the 16-wide tree and the light
+    pool's emissive triangles are refitted over the moved triangles. The
+    transforms are separate products and sums in a fixed order
+    (tmath.affine_points), so the CPU and the GPU refit to the same bits."""
+    M = tm.matmul4(inst_transform, rt.inst_inv0)
+    Mi = M[rt.tri_inst[rt.split_to_orig]]                       # (Ts, 4, 4)
+    v = tm.affine_points(Mi[:, None], rt.split_world0)
+    bvh = bvhops.refit_bvh(rt.bvh, v)
+    rt = rt._replace(bvh=bvh, btable=beamops.beam_table(bvh.table))
+    if rt.bvh16 is not None:
+        rt = rt._replace(bvh16=b16ops.refit_bvh16(rt.bvh16, v))
+    if rt.lights is not None:
+        M_tri = M[rt.tri_inst[torch.clamp(rt.lights.em_orig, min=0)]]
+        rt = rt._replace(lights=lightops.refit_light_pool(rt.lights, M_tri))
+    return rt
 
 
 def fetch_hit_attrs(gpu, rt: SceneRT, hit, o, d):

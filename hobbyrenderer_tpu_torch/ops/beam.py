@@ -8,7 +8,6 @@ tensors; nothing else chooses."""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -27,20 +26,20 @@ launches = 0      # kernel launches (CPU reference calls are not counted)
 _counters = {}    # (device index, stream) -> the kernel's counters, left at zero
 
 
-def beam_table(table: np.ndarray) -> np.ndarray:
-    """BVH table (I+L, 40) -> beam layout (I+L, 128) f32 (numpy): interior
-    rows carry the 4 child boxes in lanes 0:24, leaf rows 4 x 16-lane
-    triangle records [v0 e1 e2 tid pad6], lane 127 is the leaf marker."""
+def beam_table(table) -> torch.Tensor:
+    """BVH table (I+L, 40) -> beam layout (I+L, 128) f32 on the table's
+    device (a numpy table gives a CPU tensor): interior rows carry the 4
+    child boxes in lanes 0:24, leaf rows 4 x 16-lane triangle records
+    [v0 e1 e2 tid pad6], lane 127 is the leaf marker."""
+    table = torch.as_tensor(table, dtype=torch.float32)
     n, w = table.shape
     assert w == 40, "beam_table expects 4-wide unified rows"
-    I = _leaf_start(n)
     tris = table.reshape(n, 4, 10)
-    leaf64 = np.concatenate([tris, np.zeros((n, 4, 6), table.dtype)], -1).reshape(n, 64)
-    interior64 = np.concatenate([table[:, :24], np.zeros((n, 40), table.dtype)], -1)
-    is_leaf = (np.arange(n) >= I)[:, None]
-    body = np.where(is_leaf, leaf64, interior64)
-    return np.concatenate([body, np.zeros((n, 63), table.dtype),
-                           is_leaf.astype(table.dtype)], -1).astype(np.float32)
+    leaf64 = torch.cat([tris, tris.new_zeros((n, 4, 6))], -1).reshape(n, 64)
+    interior64 = torch.cat([table[:, :24], table.new_zeros((n, 40))], -1)
+    is_leaf = (torch.arange(n, device=table.device) >= _leaf_start(n))[:, None]
+    body = torch.where(is_leaf, leaf64, interior64)
+    return torch.cat([body, table.new_zeros((n, 63)), is_leaf.to(torch.float32)], -1)
 
 
 def pack_rays_tiles(o, d, t_max, active, H: int, W: int):

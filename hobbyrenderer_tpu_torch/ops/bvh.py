@@ -1,7 +1,8 @@
-"""Host BVH build (numpy): the 4-wide implicit-heap BVH of
-hobbyrenderer_tpu/ops/bvh.py (build_bvh and its helpers), ported so the
-torch package does not import the JAX module. Same level-wise median split,
-same unified (I+L, 40) node table, bit-identical output."""
+"""The 4-wide implicit-heap BVH of hobbyrenderer_tpu/ops/bvh.py: the host
+build (build_bvh: the same level-wise median split, the same unified
+(I+L, 40) node table, bit-identical output) and the per-frame refit on the
+device (refit_bvh). The leaf rows and box levels are torch functions that
+both use (on CPU tensors at build)."""
 
 from __future__ import annotations
 
@@ -9,13 +10,15 @@ import warnings
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 LEAF_SIZE = 4
 
 
 class BVH(NamedTuple):
+    """numpy arrays from build_bvh, tensors after bvh_to_device / refit."""
     table: np.ndarray     # (I + L, 40) f32 unified node rows
-    order: np.ndarray     # (L * K,) i32 leaf slot -> triangle id (-1 pad)
+    order: np.ndarray     # (L * K,) leaf slot -> triangle id (-1 pad)
     root_box: np.ndarray  # (6,) f32 scene bounds (lo, hi)
     num_tris: int
 
@@ -54,8 +57,8 @@ def _binary_level_boxes(vlo, vhi):
     levels = [(vlo, vhi)]
     lo, hi = vlo, vhi
     while lo.shape[0] > 1:
-        lo = np.minimum(lo[0::2], lo[1::2])
-        hi = np.maximum(hi[0::2], hi[1::2])
+        lo = torch.minimum(lo[0::2], lo[1::2])
+        hi = torch.maximum(hi[0::2], hi[1::2])
         levels.append((lo, hi))
     return levels
 
@@ -67,26 +70,40 @@ def _assemble_table(leaf_rows, levels, L: int):
     rows = []
     for k in range(n_bin // 2):
         lo, hi = levels[n_bin - 2 * (k + 1)]
-        rows.append(np.concatenate([lo, hi], axis=1).reshape(-1, 24))
+        rows.append(torch.cat([lo, hi], 1).reshape(-1, 24))
     if rows:
-        interior = np.concatenate(rows, axis=0)
-        pad = np.zeros((interior.shape[0], W - 24), interior.dtype)
-        return np.concatenate([np.concatenate([interior, pad], axis=1), leaf_rows], 0)
+        interior = torch.cat(rows, 0)
+        pad = interior.new_zeros((interior.shape[0], W - 24))
+        return torch.cat([torch.cat([interior, pad], 1), leaf_rows], 0)
     return leaf_rows
 
 
 def _leaf_data(sorted_tris, tri_id, L: int, leaf_size: int):
-    """Sorted triangles -> (leaf_rows (L, 40), leaf lo/hi (L, 3))."""
+    """Sorted triangles (L*K, 3, 3) and their ids (-1 = padding) ->
+    (leaf_rows (L, 10K) [v0 e1 e2 tid] per slot, leaf lo / hi (L, 3));
+    a leaf without a triangle gets an inverted box (never hit)."""
     v0 = sorted_tris[:, 0]
     e1 = sorted_tris[:, 1] - v0
     e2 = sorted_tris[:, 2] - v0
-    tid = tri_id.astype(sorted_tris.dtype)[:, None]
-    leaf_rows = np.concatenate([v0, e1, e2, tid], axis=1).reshape(L, leaf_size * 10)
+    tid = tri_id.to(sorted_tris.dtype)[:, None]
+    leaf_rows = torch.cat([v0, e1, e2, tid], 1).reshape(L, leaf_size * 10)
     leaf_tris = sorted_tris.reshape(L, leaf_size, 3, 3)
-    valid = (tri_id.reshape(L, leaf_size) >= 0)[..., None, None]
-    vlo = np.where(valid, leaf_tris, 1e30).reshape(L, -1, 3).min(1)
-    vhi = np.where(valid, leaf_tris, -1e30).reshape(L, -1, 3).max(1)
-    return leaf_rows, vlo.astype(sorted_tris.dtype), vhi.astype(sorted_tris.dtype)
+    valid = tri_id.reshape(L, leaf_size) >= 0
+    vlo = torch.where(valid[..., None, None], leaf_tris, 1e30).reshape(L, -1, 3).amin(1)
+    vhi = torch.where(valid[..., None, None], leaf_tris, -1e30).reshape(L, -1, 3).amax(1)
+    empty = ~valid.any(1)[:, None]
+    return leaf_rows, torch.where(empty, 1e30, vlo), torch.where(empty, -1e30, vhi)
+
+
+def _sorted_leaves(tri_verts, order, T: int):
+    """The median split's slot order -> (sorted triangles (N, 3, 3) f32,
+    1e30 in padding slots, and slot -> triangle id, -1 = padding), as CPU
+    tensors."""
+    valid = order < T
+    sorted_tris = np.where(valid[:, None, None], tri_verts[np.minimum(order, T - 1)],
+                           np.float32(1e30))
+    tri_id = np.where(valid, order, -1).astype(np.int32)
+    return torch.from_numpy(sorted_tris), torch.from_numpy(tri_id)
 
 
 def build_bvh(tri_verts: np.ndarray) -> BVH:
@@ -106,16 +123,41 @@ def build_bvh(tri_verts: np.ndarray) -> BVH:
     if pad:
         cent = np.concatenate([cent, np.full((pad, 3), np.inf, np.float32)], 0)
     order = _median_split_order(cent, L, leaf_size)
-    valid = order < T
-    sorted_tris = np.where(valid[:, None, None],
-                           tri_verts[np.minimum(order, T - 1)], np.float32(1e30))
-    tri_id = np.where(valid, order, -1).astype(np.int32)
+    sorted_tris, tri_id = _sorted_leaves(tri_verts, order, T)
     leaf_rows, vlo, vhi = _leaf_data(sorted_tris, tri_id, L, leaf_size)
-    empty = ~(tri_id.reshape(L, leaf_size) >= 0).any(1)
-    vlo[empty] = np.float32(1e30)
-    vhi[empty] = np.float32(-1e30)
     levels = _binary_level_boxes(vlo, vhi)
-    table = _assemble_table(leaf_rows, levels, L).astype(np.float32)
+    table = _assemble_table(leaf_rows, levels, L)
     root_lo, root_hi = levels[-1]
-    root_box = np.concatenate([root_lo[0], root_hi[0]]).astype(np.float32)
-    return BVH(table=table, order=tri_id, root_box=root_box, num_tris=T)
+    return BVH(table=table.numpy(), order=tri_id.numpy(),
+               root_box=torch.cat([root_lo[0], root_hi[0]]).numpy(), num_tris=T)
+
+
+def bvh_to_device(bvh: BVH, device) -> BVH:
+    """The tree's arrays as tensors on ``device`` (order as int64)."""
+    def t(a, dtype):
+        return torch.as_tensor(a, device=device).to(dtype)
+    return BVH(table=t(bvh.table, torch.float32), order=t(bvh.order, torch.int64),
+               root_box=t(bvh.root_box, torch.float32), num_tris=bvh.num_tris)
+
+
+def refit_leaves(order, L: int, K: int, tri_verts):
+    """The leaf rows, binary box levels and root box of a tree whose slots
+    hold the triangles ``order`` (L*K,) names (-1 = padding), over
+    tri_verts (T, 3, 3): the triangles it was built over at their new
+    positions. Shared by refit_bvh and bvh16.refit_bvh16."""
+    st = torch.where((order >= 0)[:, None, None], tri_verts[torch.clamp(order, min=0)], 1e30)
+    leaf_rows, vlo, vhi = _leaf_data(st, order, L, K)
+    levels = _binary_level_boxes(vlo, vhi)
+    root_lo, root_hi = levels[-1]
+    return leaf_rows, levels, torch.cat([root_lo[0], root_hi[0]])
+
+
+def refit_bvh(bvh: BVH, tri_verts) -> BVH:
+    """The same tree over moved triangles: tri_verts (T, 3, 3), the
+    triangles the tree was built over at their new positions, on the
+    tree's device. Leaf rows and every box level are recomputed with
+    min / max sweeps (the per-frame refit of an animated scene)."""
+    L = (3 * bvh.table.shape[0] + 1) // 4
+    leaf_rows, levels, root_box = refit_leaves(bvh.order, L, bvh.order.shape[0] // L,
+                                               tri_verts)
+    return bvh._replace(table=_assemble_table(leaf_rows, levels, L), root_box=root_box)

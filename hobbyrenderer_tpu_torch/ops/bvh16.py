@@ -1,6 +1,7 @@
-"""16-wide BVH: host build, the walk kernel's wrapper and its plain PyTorch
-version (counterpart of hobbyrenderer_tpu/ops/bvh16.py build_bvh16 /
-_traverse16 and of the Pallas walk ops/wtrace.py::_wtrace_kernel, K3).
+"""16-wide BVH: host build, refit on the device, the walk kernel's wrapper
+and its plain PyTorch version (counterpart of hobbyrenderer_tpu/ops/bvh16.py
+build_bvh16 / refit_bvh16 / _traverse16 and of the Pallas walk
+ops/wtrace.py::_wtrace_kernel, K3).
 
 Layout: a 16-ary implicit heap (children of q are 16q+1..16q+16), I =
 (16^m - 1)/15 interior rows then L = 16^m leaf rows, each ONE contiguous
@@ -34,7 +35,8 @@ import torch
 
 from hobbyrenderer_tpu_torch import kernels
 from hobbyrenderer_tpu_torch.ops.bvh import (_binary_level_boxes, _leaf_data,
-                                             _median_split_order)
+                                             _median_split_order, _sorted_leaves,
+                                             refit_leaves)
 from hobbyrenderer_tpu_torch.ops.intersect import safe_inv_dir
 
 LEAF16 = 12          # triangle records per leaf row
@@ -80,18 +82,17 @@ class HitRecord(NamedTuple):
     front: torch.Tensor   # (R,) bool
 
 
-def _assemble16(leaf_rows, levels, L: int) -> np.ndarray:
+def _assemble16(leaf_rows, levels, L: int):
     """Binary level boxes + leaf rows -> row-major (I + L, 128) table."""
     n_bin = int(np.log2(L)) if L > 1 else 0
-    leaf_rows = np.concatenate(
-        [leaf_rows, np.zeros((leaf_rows.shape[0], ROW_W - leaf_rows.shape[1]),
-                             leaf_rows.dtype)], axis=1)
+    leaf_rows = torch.cat([leaf_rows, leaf_rows.new_zeros(
+        (leaf_rows.shape[0], ROW_W - leaf_rows.shape[1]))], 1)
     rows = []
     for k in range(n_bin // 4):
         lo, hi = levels[n_bin - 4 * (k + 1)]           # (16^(k+1), 3)
-        r = np.concatenate([lo, hi], axis=1).reshape(16 ** k, 96)
-        rows.append(np.concatenate([r, np.zeros((r.shape[0], ROW_W - 96), r.dtype)], 1))
-    return np.concatenate(rows + [leaf_rows], axis=0)
+        r = torch.cat([lo, hi], 1).reshape(16 ** k, 96)
+        rows.append(torch.cat([r, r.new_zeros((r.shape[0], ROW_W - 96))], 1))
+    return torch.cat(rows + [leaf_rows], 0)
 
 
 def build_bvh16_arrays(tri_verts: np.ndarray, leaf_size: int = LEAF16) -> dict:
@@ -110,22 +111,29 @@ def build_bvh16_arrays(tri_verts: np.ndarray, leaf_size: int = LEAF16) -> dict:
     if N > T:
         cent = np.concatenate([cent, np.full((N - T, 3), np.inf, np.float32)], 0)
     order = _median_split_order(cent, L, leaf_size)
-    valid = order < T
-    sorted_tris = np.where(valid[:, None, None], tri_verts[np.minimum(order, T - 1)],
-                           np.float32(1e30))
-    tri_id = np.where(valid, order, -1).astype(np.int32)
+    sorted_tris, tri_id = _sorted_leaves(tri_verts, order, T)
     leaf_rows, vlo, vhi = _leaf_data(sorted_tris, tri_id, L, leaf_size)
-    empty = ~(tri_id.reshape(L, leaf_size) >= 0).any(1)
-    vlo[empty] = np.float32(1e30)       # inverted box: never descended
-    vhi[empty] = np.float32(-1e30)
     levels = _binary_level_boxes(vlo, vhi)
-    table = np.ascontiguousarray(_assemble16(leaf_rows, levels, L), np.float32)
     root_lo, root_hi = levels[-1]
+    tri_id = tri_id.numpy()
+    valid = tri_id >= 0
     slot_of = np.zeros(T, np.int32)
     slot_of[tri_id[valid]] = np.arange(N, dtype=np.int32)[valid]
-    return dict(table=table, order=tri_id,
-                root_box=np.concatenate([root_lo[0], root_hi[0]]).astype(np.float32),
-                recs=leaf_rows.reshape(N, 10)[:, :9].copy(), slot_of=slot_of)
+    return dict(table=_assemble16(leaf_rows, levels, L).numpy(), order=tri_id,
+                root_box=torch.cat([root_lo[0], root_hi[0]]).numpy(),
+                recs=leaf_rows.reshape(N, 10)[:, :9].contiguous().numpy(), slot_of=slot_of)
+
+
+def refit_bvh16(bvh: BVH16, tri_verts) -> BVH16:
+    """The same tree over moved triangles (tri_verts (T, 3, 3) on the
+    tree's device, the triangles it was built over at their new positions):
+    the row-major table, root box and leaf records recomputed with min /
+    max sweeps (the per-frame refit of an animated scene)."""
+    L = bvh.num_leaves
+    K = bvh.order.shape[0] // L
+    leaf_rows, levels, root_box = refit_leaves(bvh.order, L, K, tri_verts)
+    return bvh._replace(table=_assemble16(leaf_rows, levels, L), root_box=root_box,
+                        recs=leaf_rows.reshape(L * K, 10)[:, :9].contiguous())
 
 
 def bvh16_from_numpy(d: dict, num_tris: int, device) -> BVH16:

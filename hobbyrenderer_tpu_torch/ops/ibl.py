@@ -1,6 +1,7 @@
-"""Image-based lighting from the procedural sky: SH irradiance rebuilt each
-frame + split-sum specular ambient (counterpart of hobbyrenderer_tpu/ops/
-ibl.py; no authored env map or BRDF LUT in this slice)."""
+"""Image-based lighting: SH irradiance (the procedural sky's, rebuilt each
+frame, or an environment map's, projected at load) + split-sum specular
+ambient, with the analytic environment-BRDF fit or an authored LUT
+(counterpart of hobbyrenderer_tpu/ops/ibl.py)."""
 
 from __future__ import annotations
 
@@ -102,19 +103,47 @@ def env_brdf(ndv, rough):
     return torch.clamp(A, 0.0, 1.0), torch.clamp(B, 0.0, 1.0)
 
 
+def env_brdf_lut(lut, ndv, rough):
+    """Split-sum (scale, bias) from an authored (N, N, 2) LUT, bilinear in
+    (x = n.v, y = roughness); ndv and rough are (..., 1)."""
+    N = lut.shape[0]
+    x = torch.clamp(ndv[..., 0], 0.0, 1.0) * (N - 1)
+    y = torch.clamp(rough[..., 0], 0.0, 1.0) * (N - 1)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=N - 1)
+    y1 = torch.clamp(y0 + 1, max=N - 1)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    flat = lut.reshape(N * N, 2)
+    c = ((flat[y0 * N + x0] * (1 - fx) + flat[y0 * N + x1] * fx) * (1 - fy)
+         + (flat[y1 * N + x0] * (1 - fx) + flat[y1 * N + x1] * fx) * fy)
+    return c[..., 0:1], c[..., 1:2]
+
+
 def ibl_ambient(sh, n, v, albedo, metallic, roughness, sun_dir, settings,
-                intensity=1.0, spec_suppress=None):
-    """Diffuse SH irradiance + roughness-aware specular ambient.
-    ``spec_suppress`` (H, W) in [0, 1], optional: the share of the specular
-    term that traced specular indirect (ops/specular.py) replaces."""
+                intensity=1.0, env_fn=None, spec_suppress=None, brdf_lut=None):
+    """Diffuse SH irradiance + roughness-aware specular ambient: the
+    reflection direction's environment (``env_fn`` when an environment map
+    is loaded, else the procedural sky) blended toward the irradiance with
+    roughness, weighted by the split-sum BRDF (``brdf_lut`` when authored,
+    else the analytic fit). ``spec_suppress`` (H, W) in [0, 1], optional:
+    the share of the specular term that traced specular indirect
+    (ops/specular.py) replaces."""
     diffuse_c, f0, _alpha = brdf_params(albedo, metallic, roughness)
     diffuse = diffuse_c * torch.clamp(sample_irradiance(sh, n), min=0.0)
     r = tm.reflect(-v, n)
-    env_r = skyops.sky_radiance_fast(r, sun_dir, settings, with_sun_disk=False)
+    if env_fn is not None:
+        env_r = env_fn(r)
+    else:
+        env_r = skyops.sky_radiance_fast(r, sun_dir, settings, with_sun_disk=False)
     rough = torch.clamp(roughness, 0.0, 1.0)[..., None]
     spec_env = env_r * (1 - rough) + torch.clamp(sample_irradiance(sh, r), min=0.0) * rough
     ndv = torch.clamp(torch.sum(n * v, -1, keepdim=True), min=1e-4)
-    scale, bias = env_brdf(ndv, rough)
+    if brdf_lut is not None:
+        scale, bias = env_brdf_lut(brdf_lut, ndv, rough)
+    else:
+        scale, bias = env_brdf(ndv, rough)
     spec = spec_env * (f0 * scale + bias)
     if spec_suppress is not None:
         spec = spec * (1.0 - spec_suppress)[..., None]

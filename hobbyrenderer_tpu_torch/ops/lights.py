@@ -8,8 +8,10 @@ analytic [type, pos3, dir3, color3, range, cone2, 0, 0, 0], emissive
 [0, v03, e13, e23, rad3, 1, 0, 0]. Presampling draws ids proportional to
 power with the counter RNG (utils/rng.py, bit-exact with the JAX package).
 
-The pool of an animated scene would be refit and refreshed every frame;
-that path is not ported (the renderer raises for animated scenes)."""
+An animated scene moves the pool's emissive triangles with their instances
+(``refit_light_pool``, on the device) and re-reads their radiance from the
+material table when materials change (``refresh_pool_emissive``, which
+recomputes the power CDF)."""
 
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from hobbyrenderer_tpu_torch.ops.shading import _range_falloff
+from hobbyrenderer_tpu_torch.scene.gpu import MAT_EMISSIVE
 from hobbyrenderer_tpu_torch.scene.scene import LIGHT_DIRECTIONAL, LIGHT_SPOT
 from hobbyrenderer_tpu_torch.utils import math as hm
 from hobbyrenderer_tpu_torch.utils import tmath as tm
@@ -130,18 +133,44 @@ def refresh_pool_power(pool: LightPool, gpu) -> LightPool:
     return pack_pool(pool._replace(power_cdf=cdf, power_pdf=pdf), gpu)
 
 
+def refresh_pool_emissive(pool: LightPool, gpu, tri_mat) -> LightPool:
+    """Re-read the emissive triangles' radiance from the current material
+    table (animated emissive strength must change the light they cast),
+    then recompute the power CDF (one copy to the host and back).
+    tri_mat (T,): original flat triangle -> material."""
+    em = gpu.mat_f[tri_mat[torch.clamp(pool.em_orig, min=0)], MAT_EMISSIVE:MAT_EMISSIVE + 3]
+    rad = torch.where((pool.em_orig >= 0)[:, None], em * pool.em_scale[:, None], 0.0)
+    return refresh_pool_power(pool._replace(em_rad=rad), gpu)
+
+
+def refit_light_pool(pool: LightPool, M_tri) -> LightPool:
+    """Move the emissive triangles by their instances' world deltas M_tri
+    (E, 4, 4) and rewrite their packed rows; the power is not recomputed
+    (a rigid move keeps each triangle's area)."""
+    v0 = tm.affine_points(M_tri, pool.em_v0)
+    v1 = tm.affine_points(M_tri, pool.em_v0 + pool.em_e1)
+    v2 = tm.affine_points(M_tri, pool.em_v0 + pool.em_e2)
+    pool = pool._replace(em_v0=v0, em_e1=v1 - v0, em_e2=v2 - v0)
+    E = pool.em_v0.shape[0]
+    return pool._replace(packed=torch.cat([pool.packed[:-E], _pack_emissive(pool)], 0))
+
+
 def pack_pool(pool: LightPool, gpu) -> LightPool:
     """Build the one-row-per-light packed table."""
     A = gpu.light_type.shape[0]
-    E = pool.em_v0.shape[0]
     dev = pool.em_v0.device
     pa = torch.cat([gpu.light_type.to(torch.float32)[:, None], gpu.light_pos,
                     gpu.light_dir, gpu.light_color, gpu.light_range[:, None],
                     gpu.light_cone, torch.zeros((A, 3), device=dev)], -1)
-    pe = torch.cat([torch.zeros((E, 1), device=dev), pool.em_v0, pool.em_e1,
-                    pool.em_e2, pool.em_rad, torch.ones((E, 1), device=dev),
-                    torch.zeros((E, 2), device=dev)], -1)
-    return pool._replace(packed=torch.cat([pa, pe], 0))
+    return pool._replace(packed=torch.cat([pa, _pack_emissive(pool)], 0))
+
+
+def _pack_emissive(pool: LightPool) -> torch.Tensor:
+    E = pool.em_v0.shape[0]
+    dev = pool.em_v0.device
+    return torch.cat([torch.zeros((E, 1), device=dev), pool.em_v0, pool.em_e1,
+                      pool.em_e2, pool.em_rad, torch.ones((E, 1), device=dev),
+                      torch.zeros((E, 2), device=dev)], -1)
 
 
 def light_incident_rows(rows, uv, pos):

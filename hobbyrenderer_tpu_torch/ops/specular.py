@@ -8,8 +8,9 @@ active lanes compact into a fixed capacity (no host sync), take one closest
 hit each through ``closest_hit_auto`` (the bvh16 walk K3 under a 512-step
 4-ary budget), shade the hit as the GI bounce does (emission, one NEE
 sample, sky exitance, and with ``sharc_cache`` the SHARC cache's value at
-the hit's cell), and read the sky on a miss; lanes past the capacity read
-the sky too. The
+the hit's cell), and read the environment on a miss (``env_fn``, the
+environment map, else the sky; nothing with ``include_env_miss`` off); lanes
+past the capacity read it too. The
 demodulated signal goes through the RELAX temporal pass and a short
 roughness-aware A-trous, is upsampled, remodulated, and returned weighted by
 the blend that hands over to the split-sum ambient at higher roughness."""
@@ -73,9 +74,6 @@ def specular_indirect(gpu, rt, gb, vc, settings, state: DenoiseState, frame_inde
     reflection walk's K3 lanes and those that spent its budget),
     ``nee_lanes`` / ``nee_capped``, and ``past_cap`` (active lanes past the
     capacity)."""
-    if env_fn is not None:
-        raise NotImplementedError("environment maps are not ported yet: ROADMAP Queue 1 "
-                                  "item 5 (environment maps and authored IBL)")
     if shard is not None:
         raise NotImplementedError("row-band sharding is not ported yet: "
                                   "ROADMAP Queue 1 item 10 (multi-GPU)")
@@ -152,10 +150,14 @@ def specular_indirect(gpu, rt, gb, vc, settings, state: DenoiseState, frame_inde
         hrad = hrad + torch.where((fb_ok & (hit.tri >= 0))[..., None], fb, 0.0)
     so.update(nee_lanes=nee["k3_lanes"], nee_capped=nee["k3_capped"],
               past_cap=torch.clamp(active.sum() - CAP, min=0))
-    if include_env_miss:
-        env_r = skyops.sky_radiance_fast(d, sun_dir, settings, with_sun_disk=True)
-    else:
+    # a miss reads the environment; not when it rides the light pool
+    # (``include_env_miss`` False), whose specular ReSTIR DI resolves
+    if not include_env_miss:
         env_r = torch.zeros((R, 3), device=dev)
+    elif env_fn is not None:
+        env_r = env_fn(d)
+    else:
+        env_r = skyops.sky_radiance_fast(d, sun_dir, settings, with_sun_disk=True)
     hit_ok_c = (hit.tri >= 0) & ~pad
     # scatter back to the spec grid; padding lanes (sel = R) land in a spare row
     hit_rad = torch.zeros((R + 1, 3), device=dev).index_put_(

@@ -19,14 +19,21 @@ from hobbyrenderer_tpu_torch.scene.gpu import (MAT_ATTEN_COLOR, MAT_ATTEN_DIST,
 
 
 def transparent_composite(gpu, vc, settings, gb, hdr, *, width, height,
-                          transparent_capacity, sun_dir, sky_sh, ibl_scale=1.0):
-    """Render the scene's alpha-BLEND geometry over hdr; returns new hdr."""
+                          transparent_capacity, sun_dir, sky_sh, env_as_lights: bool = False,
+                          env_fn=None, ibl_scale=1.0):
+    """Render the scene's alpha-BLEND geometry over hdr; returns new hdr.
+    ``env_fn`` (directions -> radiance): the environment map, for the
+    ambient's reflections and refracted rays that leave the screen (else
+    the procedural sky); ``env_as_lights``: the environment rides the light
+    list, so the ambient term is dropped."""
     dev = hdr.device
     cull = cullops.cull_pairs(gpu, vc, alpha_mask=(False, False, True))
     vdir = skyops.view_dirs_from_pixels(vc, height, width)
     v = -vdir
 
     def miss_env(d):
+        if env_fn is not None:
+            return env_fn(d)
         return skyops.sky_radiance_fast(d, sun_dir, settings)
 
     stack = refrops.build_level_stack(hdr)
@@ -70,8 +77,12 @@ def transparent_composite(gpu, vc, settings, gb, hdr, *, width, height,
 
         direct = shadeops.shade_all_lights(gpu, pos_c, n_c, v_c, alb_c,
                                            metal_c, rough_c)
-        ambient = iblops.ibl_ambient(sky_sh, n_c, v_c, alb_c, metal_c, rough_c,
-                                     sun_dir, settings, intensity=ibl_scale)
+        if env_as_lights:
+            ambient = torch.zeros_like(alb_c)
+        else:
+            ambient = iblops.ibl_ambient(sky_sh, n_c, v_c, alb_c, metal_c, rough_c,
+                                         sun_dir, settings, intensity=ibl_scale,
+                                         env_fn=env_fn, brdf_lut=gpu.brdf_lut)
         shaded = direct + ambient
         mf = gpu.mat_f[torch.clamp(flat(tgb.material), min=0)]
         transmission = mf[..., MAT_TRANSMISSION][..., None]

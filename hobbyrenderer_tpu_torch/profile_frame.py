@@ -5,6 +5,8 @@
         [--mode normal_basic --indirect-mode ddgi] [--mode path_tracer] [--frames 8]
     python -m hobbyrenderer_tpu_torch.profile_frame --mode ibl --direct-mode restir \
         --indirect-mode combined --regir
+    python -m hobbyrenderer_tpu_torch.profile_frame --direct-mode restir \
+        --indirect-mode restir --envmap 2048 --env-lights 64 --animate [--render-scale 0.5]
 
 Renders ``--frames`` frames and prints, per pass: the stream time (CUDA
 events around each pass, median over the frames after the first) and the
@@ -13,7 +15,11 @@ the last 3 frames: kernels that start inside the pass's device-side
 record_function range, / 3). A path-tracer frame (960x540 unless a size
 is given) has no passes: its rows are the bounces, each split into its two
 K3 walks (closest hit, NEE any hit) and the shading around them, and the
-wavefront compactions.
+wavefront compactions. ``--envmap`` takes an image path, or a width for
+the seeded sky of scene/workload.py (written to a temporary directory);
+``--animate`` gives every 8th node of the scene a rise-and-turn animation,
+so every frame refits the ray-tracing scene (its device time is the
+"Frame/RTRefit" row).
 Then the frame time (host clock with a synchronize, median after the
 first), the kernels per frame, and the device's busy share of the traced
 frames (kernel time / wall time). The first line is the card's name and
@@ -23,8 +29,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 import warnings
 
@@ -80,6 +88,50 @@ def median_ms(pairs, skip: int = 1) -> float:
     return round(statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs[skip:]), 3)
 
 
+def traced_frames(r, frames: int = 3):
+    """Render ``frames`` frames of Renderer ``r`` under torch.profiler:
+    (the trace's device events, each frame's ms on the host clock with a
+    synchronize, the traced wall ms)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    frame_ms = []
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            f0 = time.perf_counter()
+            r.render_frame()
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - f0) * 1e3)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dev, frame_ms, wall_ms
+
+
+def busy_share(kern, frames: int, wall_ms: float) -> dict:
+    """Kernels and kernel ms a frame and the device's busy share (kernel
+    time over the traced wall time, a lower bound) of ``kern``, the kernel
+    events of ``frames`` traced frames."""
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    return {"kernels_per_frame": round(len(kern) / frames),
+            "kernel_ms_per_frame": round(busy_ms / frames, 2),
+            "traced_wall_ms_per_frame": round(wall_ms / frames, 2),
+            "device_busy_share": round(busy_ms / wall_ms, 4)}
+
+
+def envmap_path(envmap):
+    """--envmap: an image path as it is, or a width: scene/workload.py's
+    seeded sky at that width (seed 7), written as .hdr to a temporary
+    directory."""
+    if envmap is None or not envmap.isdigit():
+        return envmap
+    from hobbyrenderer_tpu_torch.ops.envmap import encode_hdr
+    from hobbyrenderer_tpu_torch.scene.workload import sky_envmap
+    w = int(envmap)
+    path = os.path.join(tempfile.mkdtemp(prefix="hr_profile_env"), "sky.hdr")
+    with open(path, "wb") as f:
+        f.write(encode_hdr(sky_envmap(w // 2, w, seed=7)))
+    return path
+
+
 def _in(k, rng):
     return rng.time_range.start <= k.time_range.start < rng.time_range.end
 
@@ -129,6 +181,12 @@ def main(argv=None):
     p.add_argument("--regir", action="store_true")
     p.add_argument("--regir-mode", default="onion", choices=("onion", "grid"))
     p.add_argument("--no-specular-indirect", dest="specular_indirect", action="store_false")
+    p.add_argument("--envmap", default=None,
+                   help="an equirect image, or a width for the seeded sky (scene/workload.py)")
+    p.add_argument("--env-lights", type=int, default=0)
+    p.add_argument("--animate", action="store_true",
+                   help="animate every 8th node: each frame refits the RT scene")
+    p.add_argument("--render-scale", type=float, default=1.0)
     p.add_argument("--frames", type=int, default=8)
     p.add_argument("--cache-dir", default=".hr_cache")
     a = p.parse_args(argv)
@@ -143,12 +201,22 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    envmap = envmap_path(a.envmap)
+    scene = None
+    if a.animate:
+        from hobbyrenderer_tpu_torch.scene.procedural import make_stress_scene
+        from hobbyrenderer_tpu_torch.scene.workload import animate_nodes
+        if not a.scene.startswith("stress"):
+            raise SystemExit("--animate takes the stress scene")
+        grid = int(a.scene.split(":")[1]) if ":" in a.scene else 12
+        scene = animate_nodes(make_stress_scene(grid=grid))
     r = Renderer(Config(scene=a.scene, width=a.width, height=a.height, mode=a.mode,
                         direct_mode=a.direct_mode, indirect_mode=a.indirect_mode,
-                        regir=a.regir, regir_mode=a.regir_mode,
+                        regir=a.regir, regir_mode=a.regir_mode, envmap=envmap,
+                        env_lights=a.env_lights, render_scale=a.render_scale,
                         specular_indirect=a.specular_indirect, cache_dir=a.cache_dir),
-                 device="cuda")
-    names = [] if pt else [ps.name for ps in r.graph.passes if ps.enabled]
+                 scene=scene, device="cuda")
+    names = [] if pt else [ps.name for ps in r.graph.passes if ps.enabled] + ["Frame/RTRefit"]
     events = {} if pt else time_passes(r.graph)
     frame_ms = []
     for _ in range(a.frames - 3):
@@ -156,17 +224,9 @@ def main(argv=None):
         r.render_frame()
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            f0 = time.perf_counter()
-            r.render_frame()
-            torch.cuda.synchronize()
-            frame_ms.append((time.perf_counter() - f0) * 1e3)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev, traced_ms, wall_ms = traced_frames(r, 3)
+    frame_ms += traced_ms
     r.shutdown()
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if pt:
         rows, kern = _pt_rows(dev, 3)
         print("per-bounce " + json.dumps(rows))
@@ -177,19 +237,17 @@ def main(argv=None):
         for rng in ann:
             per[rng.name] = per.get(rng.name, 0.0) + sum(
                 k.time_range.elapsed_us() for k in kern if _in(k, rng)) / 1e3
-        rows = {n: {"stream_ms": median_ms(events[n]),
+        rows = {n: {"stream_ms": median_ms(events[n]) if n in events else None,
                     "kernel_ms": round(per[n] / 3, 3) if n in per else None} for n in names}
         print("per-pass " + json.dumps(rows))
-    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     print(json.dumps({"scene": a.scene, "size": [a.width, a.height], "mode": a.mode,
                       "direct_mode": a.direct_mode, "indirect_mode": a.indirect_mode,
-                      "specular_indirect": a.specular_indirect,
+                      "specular_indirect": a.specular_indirect, "envmap": a.envmap,
+                      "env_lights": a.env_lights, "animate": a.animate,
+                      "render_scale": a.render_scale,
                       "frame_ms": [round(x, 2) for x in frame_ms],
                       "median_ms_after_first": round(statistics.median(frame_ms[1:]), 2),
-                      "kernels_per_frame": round(len(kern) / 3),
-                      "kernel_ms_per_frame": round(busy_ms / 3, 2),
-                      "traced_wall_ms_per_frame": round(wall_ms / 3, 2),
-                      "device_busy_share": round(busy_ms / wall_ms, 4)}))
+                      **busy_share(kern, 3, wall_ms)}))
     return 0
 
 

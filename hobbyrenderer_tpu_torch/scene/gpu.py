@@ -1,8 +1,9 @@
 """SceneGPU: the device-resident scene as a dataclass of torch tensors.
 
 Counterpart of hobbyrenderer_tpu/scene/gpu.py. The host flattening is the same
-numpy code (without the texture-streaming and environment-map branches, which
-this port does not run yet); the upload goes to an explicit ``device``.
+numpy code (without the texture-streaming branch, which this port does not
+run yet); the upload goes to an explicit ``device``. An environment map, its
+SH projection and an authored BRDF LUT ride along as optional tensors.
 
 Dtypes: float tables are float32; every integer table is int64 (torch indexes
 with int64), including the packed uint32 vertex/texel words, which keep their
@@ -103,6 +104,9 @@ class SceneGPU:
     light_cone: Any
     light_count: Any
     meta: Dict[str, Any] = field(default_factory=dict)
+    env_map: Any = None       # (He, We, 3) f32 equirect radiance (ops/envmap.py)
+    env_sh: Any = None        # (9, 3) f32 irradiance SH of the env map or --irradiance
+    brdf_lut: Any = None      # (N, N, 2) f32 authored split-sum LUT (--brdflut)
 
     def __post_init__(self):
         if not self.meta:
@@ -134,8 +138,11 @@ class SceneGPU:
         return max(total, 1)
 
 
-# the JAX SceneGPU leaves this port carries, in dataclass order
-FIELDS = tuple(f.name for f in dataclasses.fields(SceneGPU) if f.name != "meta")
+# the environment's optional leaves (None without an environment map / LUT)
+ENV_FIELDS = ("env_map", "env_sh", "brdf_lut")
+# the JAX SceneGPU leaves every scene has, in dataclass order
+FIELDS = tuple(f.name for f in dataclasses.fields(SceneGPU)
+               if f.name != "meta" and f.name not in ENV_FIELDS)
 
 
 def _host_meta(g: SceneGPU) -> Dict[str, Any]:
@@ -193,12 +200,12 @@ def scene_gpu_from_numpy(d: Dict[str, np.ndarray], device) -> SceneGPU:
     missing = [k for k in FIELDS if k not in d]
     if missing:
         raise KeyError(f"missing SceneGPU leaves: {missing}")
-    for k in ("tex_stream", "env_map", "env_sh", "brdf_lut"):
-        if d.get(k) is not None:
-            raise NotImplementedError(
-                f"SceneGPU.{k} is not ported yet (ROADMAP Queue 1 item 5, environment "
-                "maps and authored IBL, and item 9, texture streaming)")
-    return SceneGPU(**{k: _to_tensor(d[k], device) for k in FIELDS})
+    if d.get("tex_stream") is not None:
+        raise NotImplementedError("SceneGPU.tex_stream is not ported yet (ROADMAP Queue 1 "
+                                  "item 9, texture streaming)")
+    return SceneGPU(**{k: _to_tensor(d[k], device) for k in FIELDS},
+                    **{k: _to_tensor(d[k], device) for k in ENV_FIELDS
+                       if d.get(k) is not None})
 
 
 def _texture_arrays(scene: Scene) -> Dict[str, np.ndarray]:
@@ -403,10 +410,33 @@ def scene_arrays(scene: Scene, max_lights: int = 64) -> Dict[str, np.ndarray]:
         light_count=np.int32(nl))
 
 
-def build_scene_gpu(scene: Scene, device, max_lights: int = 64) -> SceneGPU:
-    """Flatten the host Scene and upload it to ``device``."""
+def build_scene_gpu(scene: Scene, device, max_lights: int = 64, env_map=None, env_sh=None,
+                    brdf_lut=None) -> SceneGPU:
+    """Flatten the host Scene and upload it to ``device``. ``env_map``
+    (He, We, 3) f32 also sets ``env_sh`` to its SH projection; an explicit
+    ``env_sh`` (a prebaked --irradiance map's) overrides it; ``brdf_lut``
+    (N, N, 2) replaces the analytic split-sum fit."""
+    env = {}
+    if env_map is not None:
+        from hobbyrenderer_tpu_torch.ops.envmap import project_sh9
+        env["env_map"] = env_map
+        env["env_sh"] = project_sh9(np.asarray(env_map, np.float32))
+    if env_sh is not None:
+        env["env_sh"] = env_sh
+    if brdf_lut is not None:
+        env["brdf_lut"] = brdf_lut
     return SceneGPU(**{k: _to_tensor(v, device)
-                       for k, v in scene_arrays(scene, max_lights).items()})
+                       for k, v in scene_arrays(scene, max_lights).items()},
+                    **{k: _to_tensor(v, device) for k, v in env.items()})
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A per-frame host array on ``device``: to a GPU through pinned memory
+    without waiting (a pageable copy would wait for the device's queue)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def update_instance_transforms(gpu: SceneGPU, scene: Scene) -> SceneGPU:
@@ -430,11 +460,11 @@ def update_instance_transforms(gpu: SceneGPU, scene: Scene) -> SceneGPU:
         radii.append(mesh.radius * smax)
         scale_max.append(smax)
     dev = gpu.device
-    ii = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+    ii = _upload(np.asarray(idx, np.int64), dev)
 
     def put(t, rows):
         t = t.clone()
-        t[ii] = torch.as_tensor(np.asarray(rows, np.float32), device=dev)
+        t[ii] = _upload(np.asarray(rows, np.float32), dev)
         return t
 
     gpu = dataclasses.replace(
@@ -447,3 +477,21 @@ def update_instance_transforms(gpu: SceneGPU, scene: Scene) -> SceneGPU:
         meta=gpu.meta)
     scene.dirty_instances.clear()
     return gpu
+
+
+def update_material_constants(gpu: SceneGPU, scene: Scene) -> SceneGPU:
+    """Upload dirty material rows' emissive (emissive x strength, the field
+    animations change). Returns a new SceneGPU sharing unchanged tensors."""
+    if not scene.dirty_materials:
+        return gpu
+    idx = sorted(i for i in scene.dirty_materials if i < gpu.mat_f.shape[0])
+    if not idx:
+        scene.dirty_materials.clear()
+        return gpu
+    em = np.stack([np.asarray(scene.materials[i].emissive, np.float32)
+                   * np.float32(scene.materials[i].emissive_strength) for i in idx])
+    mat_f = gpu.mat_f.clone()
+    mat_f[_upload(np.asarray(idx, np.int64), gpu.device),
+          MAT_EMISSIVE:MAT_EMISSIVE + 3] = _upload(em, gpu.device)
+    scene.dirty_materials.clear()
+    return dataclasses.replace(gpu, mat_f=mat_f, meta=gpu.meta)

@@ -26,6 +26,23 @@ def reflect(d, n):
     return d - 2.0 * torch.sum(d * n, dim=-1, keepdim=True) * n
 
 
+def affine_points(M, p):
+    """Points p (..., 3) through affine matrices M (..., 4, 4), as separate
+    products and sums in a fixed order (no fused multiply-add, no matmul
+    library), so that the CPU and the GPU give the same bits."""
+    return torch.stack([((M[..., i, 0] * p[..., 0] + M[..., i, 1] * p[..., 1])
+                         + M[..., i, 2] * p[..., 2]) + M[..., i, 3] for i in range(3)], -1)
+
+
+def matmul4(a, b):
+    """a @ b for (..., 4, 4) stacks, summed over k = 0..3 in order (as
+    affine_points: the same bits on the CPU and the GPU)."""
+    out = a[..., :, 0:1] * b[..., 0:1, :]
+    for k in range(1, 4):
+        out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
+    return out
+
+
 def oct_encode(n):
     """Unit vector -> octahedral (u, v) in [-1, 1]^2."""
     n = n / torch.clamp(torch.sum(torch.abs(n), dim=-1, keepdim=True), min=1e-20)

@@ -149,10 +149,10 @@ def test_cpu_frame_counts_no_kernel_launch(tmp_path):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(envmap="sky.hdr"), dict(csm_debug=True),
-    dict(mode="path_tracer", envmap="sky.hdr"),
-    dict(keep_hdr=True), dict(render_scale=0.5), dict(tex_streaming=True),
-    dict(execute_per_pass=True), dict(debug_view="ssgi_radiance")])
+    dict(tex_streaming=True), dict(csm_debug=True),
+    dict(mode="path_tracer", tex_streaming=True),
+    dict(ddgi_debug=True), dict(tex_debug=True), dict(mode="normal_basic", csm_debug=True),
+    dict(render_scale=0.5, tex_streaming=True), dict(debug_view="ssgi_radiance")])
 def test_unported_options_raise(tmp_path, opt):
     cfg = Config(scene="cube", width=64, height=48, cache_dir=str(tmp_path), **opt)
     with pytest.raises(NotImplementedError):

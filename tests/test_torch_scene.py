@@ -120,7 +120,9 @@ def test_scene_gpu_from_numpy_roundtrip(name):
     assert got.meta["light_count"] == int(leaves["light_count"])
     assert got.lod0_pair_capacity == int(np.sum(leaves["pair_lod"] == 0))
     with pytest.raises(NotImplementedError):
-        tgpu.scene_gpu_from_numpy(dict(leaves, env_sh=np.zeros((9, 3), np.float32)), "cpu")
+        tgpu.scene_gpu_from_numpy(dict(leaves, tex_stream=np.zeros(4, np.float32)), "cpu")
+    env = tgpu.scene_gpu_from_numpy(dict(leaves, env_sh=np.ones((9, 3), np.float32)), "cpu")
+    assert torch.equal(env.env_sh, torch.ones(9, 3)) and env.env_map is None
 
 
 @pytest.mark.parametrize("name", list(SCENES))
