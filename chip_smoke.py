@@ -44,7 +44,20 @@ env-light pool held bit for bit against their plain versions, three
 launches equal; the refit twice on the card, the same bits, and once on
 the CPU), the same upscaled from render_scale 0.5 in turns with the native
 one (phase 25: K1 at 960x540 bit-exact), and three configurations CUDA
-against CPU at 256x192 (phase 26).
+against CPU at 256x192 (phase 26). Then texture streaming and the debug
+views: the flagship at 1920x1080 with tex_streaming (the default 64 MB
+pool, the streamer's worker thread, feedback fetched every 8th frame), 24
+frames in turns with the plain flagship's (phase 27: frame ms, per-pass
+stream ms with Frame/TexStreaming, tiles uploaded a frame, the frame the
+resident mips settle on, host syncs by pass, K1-K4 launches a frame;
+frame 13's K1-K4 calls held against their plain versions; every textured
+material the feedback demands finer than its tail off the tail), four
+debug configurations at 1080p, 3 frames each (phase 28: ssgi_hit_mask;
+csm_debug + ddgi_debug + csm_cascade_splits; sharc_heatmap; the streamed
+flagship with tex_debug), and CUDA against CPU at 256x192 (phase 29: the
+streamed flagship in a 2 MB pool with lockstep sync-mode streamers, the
+streaming tables equal after every apply; every view of ALL_VIEWS on one
+frame's DebugView inputs; the streamed path tracer).
 Any failed check raises: the script then exits nonzero without its final
 line.
 
@@ -81,6 +94,7 @@ Exits nonzero when no GPU is visible, and when run outside the repository.
 """
 
 import ctypes
+import dataclasses
 import json
 import os
 import statistics
@@ -88,6 +102,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -962,11 +977,14 @@ REFIT_REL = 2.0 ** -20   # refit CUDA against CPU: tests/test_torch_refit.py's b
 
 
 def _to_device(x, dev):
-    """A SceneRT (nested NamedTuples of tensors and ints) on ``dev``."""
+    """A SceneRT (nested NamedTuples of tensors and ints), or a dict of
+    such values, on ``dev``."""
     if isinstance(x, torch.Tensor):
         return x.to(dev)
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(_to_device(v, dev) for v in x))
+    if isinstance(x, dict):
+        return {k: _to_device(v, dev) for k, v in x.items()}
     return x
 
 
@@ -1337,6 +1355,439 @@ def phase_env_anim_cuda_vs_cpu(Renderer, Config, env_path, card, W=256, H=192, f
             f"max {int(diff.max())} ({time.perf_counter() - t0:.1f} s on {card} and the host)")
         assert lg.shape == (H, W, 3), lg.shape
         assert within >= 0.99, (name, within)
+
+
+STREAM_FRAMES = 24        # phase 27: feedback fetched after frames 8, 16 and 24
+STREAM_HOLD_FRAME = 12    # phase 27: the streamed frame whose K1-K4 calls are held
+FLAGSHIP = dict(direct_mode="restir", indirect_mode="restir")
+
+
+def _sync_counter(r):
+    """Count each host sync of Renderer ``r``'s frames against the pass it
+    happens in ("outside": the frame loop around the passes, where the
+    streaming feedback is fetched). Returns (by_pass dict, run(frame_fn))."""
+    where = ["outside"]
+    by_pass = {}
+    for ps in r.graph.passes:
+        if ps.enabled:
+            def named(ctx, res, fn=ps.fn, name=ps.name):
+                where[0] = name
+                try:
+                    fn(ctx, res)
+                finally:
+                    where[0] = "outside"
+            ps.fn = named
+
+    def on_warning(message, *a, **kw):
+        if "synchroniz" in str(message):
+            by_pass[where[0]] = by_pass.get(where[0], 0) + 1
+
+    def run(fn):
+        n0 = sum(by_pass.values())
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = on_warning
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum(by_pass.values()) - n0
+    return by_pass, run
+
+
+def hold_captured(cap, bench_raster, bench_k2k4, card, tag):
+    """A frame's captured K1 calls, K2 call, K3 walks and K4 calls, each
+    held against its plain version as phases 2, 6, 7 and 3 hold them:
+    K1 depth and visid torch.equal (attributes within 1e-4), K2 all five
+    outputs torch.equal, K3 every output torch.equal, K4 within phase 3's
+    allowance of the plain version and equal to its replayed walk; three
+    launches equal for each. Returns a summary for the kernels line."""
+    from hobbyrenderer_tpu_torch.ops import beam as beamops
+    out = {"k1": [], "k3": [], "k4": []}
+    for i, (records, work_tile, work_slot, kw) in enumerate(cap["k1"]):
+        x, line, _ = bench_raster.held_call(True, records, work_tile, work_slot, kw, False)
+        out["k1"].append(dict(exact=x["exact"], repeat_equal=x["repeat_equal"],
+                              attr_max_err=x["attr_max_err"], items=x["items"]))
+        log(f"{tag} K1 call {i} tiles={kw['tiles']}: {line} on {card}")
+        assert x["exact"] and x["repeat_equal"] and x["plan_equal"], f"{tag} K1 call {i}"
+        assert x["attr_max_err"] <= 1e-4, x["attr_max_err"]
+    a, kw = cap["k2"]
+    row, line, _ = bench_k2k4.held_k2(a, kw)
+    out["k2"] = dict(equal=row["equal"], repeat_equal=row["repeat_equal"],
+                     max_abs_err=row["max_abs_err"])
+    log(f"{tag} K2: {line} on {card}")
+    assert all(row["equal"].values()) and row["repeat_equal"], f"{tag} K2: {row['equal']}"
+    for i, walk in enumerate(cap["k3"]):
+        x = k3_check(walk)
+        out["k3"].append(dict(rays=walk[1].shape[0], mis=x["mis"], ms=x["ms"],
+                              repeat_equal=x["repeat_equal"]))
+        log(f"{tag} K3 walk {i} rays={walk[1].shape[0]} any_hit={walk[4]}: mismatches "
+            f"{x['mis']}, three launches equal {x['repeat_equal']}; kernel {x['ms']:.4f} ms, "
+            f"plain {x['plain_ms']:.3f} ms on {card}")
+        assert not any(x["mis"].values()) and x["repeat_equal"], f"{tag} K3 walk {i}"
+    for i, (btable, rays) in enumerate(cap["k4"]):
+        x, line = bench_k2k4.held_k4(btable, rays)
+        out["k4"].append(dict(active=x["active"], mismatches=x["mismatches"],
+                              replay_mismatches=x["replay_mismatches"],
+                              repeat_equal=x["repeat_equal"]))
+        log(f"{tag} K4 call {i} rays={tuple(rays.shape)}: {line} on {card}")
+        assert x["mismatches"] <= 1e-4 * max(x["active"], 1), (tag, i, x["mismatches"])
+        assert x["replay_mismatches"] == 0 and x["repeat_equal"], (tag, i)
+    return out
+
+
+def phase_streamed_flagship(Renderer, Config, reset_counts, counts, time_passes, median_ms,
+                            card, bench_raster, bench_k2k4, W=1920, H=1080):
+    """Phase 27: the flagship frame at 1920x1080 on the stress scene with
+    texture streaming (the default 64 MB pool: 4,096 pages; the streamer's
+    worker thread, feedback fetched every 8th frame), STREAM_FRAMES
+    frames, each in turns with a frame of the plain flagship: frame ms
+    (medians after the first), per-pass stream ms with Frame/TexStreaming,
+    tiles uploaded a frame, the frame on which the resident mips stop
+    changing, host syncs by pass, K1-K4 launches a frame (the counts set to
+    0 just before each streamed frame and read just after). Frame
+    STREAM_HOLD_FRAME's K1-K4 calls are captured and held against their
+    plain versions; every textured material the fetched feedback demands
+    finer than its tail must have left the tail."""
+    from hobbyrenderer_tpu_torch.ops import beam as beamops
+    from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
+    from hobbyrenderer_tpu_torch.ops import raster_kernel as rk
+    from hobbyrenderer_tpu_torch.ops import restir_kernel as rko
+    t0 = time.perf_counter()
+    r = Renderer(Config(scene="stress", width=W, height=H, tex_streaming=True,
+                        cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_stream"),
+                        **FLAGSHIP), device="cuda")
+    setup_s = time.perf_counter() - t0
+    rp = Renderer(Config(scene="stress", width=W, height=H,
+                         cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_stream_p"),
+                         **FLAGSHIP), device="cuda")
+    st = r.streamer
+    assert st.budget_pages == 4096 and st._worker is not None, (st.budget_pages, st._worker)
+    r._model.keep = ("hdr",)
+    events = time_passes(r.graph)
+    by_pass, synced = _sync_counter(r)
+    stream_ev, apply_host_ms, published = [], [], []
+    apply_orig, publish_orig = st.apply_updates, st.publish_feedback
+
+    def apply_spy(tables):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        e0.record()
+        out = apply_orig(tables)
+        e1.record()
+        apply_host_ms.append((time.perf_counter() - h0) * 1e3)
+        stream_ev.append((e0, e1))
+        return out
+
+    def publish_spy(fb):
+        published.append(np.array(fb))
+        publish_orig(fb)
+
+    st.apply_updates, st.publish_feedback = apply_spy, publish_spy
+    cap = {"k1": [], "k3": [], "k4": []}
+    hold = [False]
+    k1_orig, k2_orig = rk.raster_resolve_tiles, rko.restir_candidates
+    k3_orig, k4_orig = b16ops.bvh16_walk, beamops.beam_any_hit_tiles
+
+    def k1_spy(records, work_tile, work_slot, **kw):
+        if hold[0]:
+            cap["k1"].append((records, work_tile, work_slot, kw))
+        return k1_orig(records, work_tile, work_slot, **kw)
+
+    def k2_spy(*a, **kw):
+        if hold[0]:
+            cap.setdefault("k2", (a, kw))
+        return k2_orig(*a, **kw)
+
+    def k3_spy(table, o, d, t_max, any_hit, max_steps, t_min=1e-4):
+        if hold[0]:
+            cap["k3"].append((table, o, d, t_max, any_hit, max_steps, t_min))
+        return k3_orig(table, o, d, t_max, any_hit, max_steps, t_min)
+
+    def k4_spy(btable, rays):
+        if hold[0]:
+            cap["k4"].append((btable, rays.clone()))
+        return k4_orig(btable, rays)
+
+    rk.raster_resolve_tiles, rko.restir_candidates = k1_spy, k2_spy
+    b16ops.bvh16_walk, beamops.beam_any_hit_tiles = k3_spy, k4_spy
+    frame_ms, plain_ms, per_frame, syncs, tiles, resident = [], [], [], [], [], []
+    launches = {}
+    try:
+        for f in range(STREAM_FRAMES):
+            hold[0] = f == STREAM_HOLD_FRAME
+            up0 = st.tiles_uploaded
+            reset_counts()
+            f0 = time.perf_counter()
+            syncs.append(synced(r.render_frame))
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - f0) * 1e3)
+            c = counts()
+            per_frame.append({k: c[k] for k in ("K1", "K2", "K3", "K4")})
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+            hold[0] = False
+            tiles.append(st.tiles_uploaded - up0)
+            resident.append(r.stats()["stream_resident_mips"])
+            f0 = time.perf_counter()
+            rp.render_frame()
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - f0) * 1e3)
+    finally:
+        rk.raster_resolve_tiles, rko.restir_candidates = k1_orig, k2_orig
+        b16ops.bvh16_walk, beamops.beam_any_hit_tiles = k3_orig, k4_orig
+    stats = r.stats()
+    finite = bool(torch.isfinite(r._model.last_resources["hdr"]).all())
+    ldr = r.last_frame
+    png = os.path.join(tempfile.gettempdir(), "chip_smoke_stress_streamed_1080p.png")
+    r.save_screenshot(png)
+    passes = [p.name for p in r.graph.passes if p.enabled]
+    tail = st.tail_mip.copy()
+    r.shutdown()
+    rp.shutdown()
+    pass_ms = {k: median_ms(v) for k, v in events.items()}
+    pass_ms["Frame/TexStreaming"] = median_ms(stream_ev)
+    # the frames that applied a batch: stream ms and the host's ms of the call
+    applied = [(round(e0.elapsed_time(e1), 3), round(h, 3))
+               for (e0, e1), h, n in zip(stream_ev, apply_host_ms, tiles) if n]
+    settled = next(f for f in range(STREAM_FRAMES)
+                   if all(x == resident[f] for x in resident[f:]))
+    med, med_p = statistics.median(frame_ms[1:]), statistics.median(plain_ms[1:])
+    textured = [m for m in range(len(tail)) if tail[m] > 0]
+    demanded = sorted({m for fb in published for m in textured
+                       if fb[m, :tail[m]].sum() > 0})
+    log(f"phase27 streamed flagship stress {W}x{H} x{STREAM_FRAMES} on {card}: setup "
+        f"{setup_s:.1f} s, pool {st.budget_pages} pages ({st.pool_base} tail rows), passes "
+        f"{passes}, frame ms {[round(x, 2) for x in frame_ms]}, median frames 2-{STREAM_FRAMES} "
+        f"{med:.2f} ms; the plain flagship in turns {[round(x, 2) for x in plain_ms]}, median "
+        f"{med_p:.2f} ms; tiles uploaded a frame {tiles} (total {st.tiles_uploaded}; the "
+        f"applying frames' Frame/TexStreaming stream / host ms {applied}); resident "
+        f"mips settle from frame {settled + 1} on: {resident[-1]} (tail {tail.tolist()}); "
+        f"feedback fetched {stats['tex_feedback_host_syncs']} times; host syncs per frame "
+        f"{syncs} (by pass {json.dumps(by_pass)}); launches per frame {per_frame}; materials "
+        f"the feedback demands finer than the tail {demanded}; png {png}")
+    log(f"phase27 per-pass stream ms (CUDA events, median of frames 2-{STREAM_FRAMES}) on "
+        f"{card}: {json.dumps(pass_ms)}")
+    assert tuple(ldr.shape) == (H, W, 3) and ldr.dtype == torch.uint8
+    assert finite, "non-finite HDR"
+    assert passes == ["Culling", "Raster", "HZBBuild", "RasterPhase2", "ResolveGBuffer",
+                      "MaskedLayer", "IBL", "RTXDI", "RTXDIGI", "Denoise", "SpecularIndirect",
+                      "DeferredLighting", "Sky", "Transparent", "TAA", "AutoExposure", "Bloom",
+                      "Tonemap"], passes
+    assert stats["tex_feedback_host_syncs"] == STREAM_FRAMES // 8, stats
+    for i, c in enumerate(per_frame):
+        assert c["K1"] >= 3 and c["K2"] >= 1 and c["K3"] >= 2 and c["K4"] >= 2, (i, c)
+    assert launches["K5"] == 0 and launches["K6"] == 0, launches
+    assert demanded, "the feedback demanded no streamed mip"
+    off_tail = {m: resident[-1][m] for m in demanded}
+    assert all(resident[-1][m] < tail[m] for m in demanded), off_tail
+    held = hold_captured(cap, bench_raster, bench_k2k4, card, f"phase27 frame {STREAM_HOLD_FRAME + 1}")
+    return dict(launches=launches, ms=med, plain_ms=med_p, pass_ms=pass_ms, setup_s=setup_s,
+                tiles=tiles, applied_ms=applied, settled_frame=settled + 1, syncs=syncs, syncs_by_pass=by_pass,
+                held=held, per_frame=per_frame)
+
+
+DEBUG_CONFIGS = (
+    ("normal_basic+ssgi ssgi_hit_mask", dict(mode="normal_basic", indirect_mode="ssgi",
+                                             debug_view="ssgi_hit_mask"), "DebugView"),
+    ("normal_basic+ddgi csm_debug ddgi_debug csm_cascade_splits",
+     dict(mode="normal_basic", indirect_mode="ddgi", csm_debug=True, ddgi_debug=True,
+          debug_view="csm_cascade_splits"), "DebugView"),
+    ("normal+restir+sharc sharc_heatmap", dict(direct_mode="restir", indirect_mode="sharc",
+                                               debug_view="sharc_heatmap"), "DebugView"),
+    ("streamed flagship tex_debug", dict(FLAGSHIP, tex_streaming=True, tex_debug=True),
+     "TexResidencyDebug"),
+)
+
+
+def phase_debug_views(Renderer, Config, reset_counts, counts, card, W=1920, H=1080, frames=3):
+    """Phase 28: the debug views at 1920x1080 on the stress scene, four
+    renderers of ``frames`` frames: frame ms, the passes, launches, and an
+    image that is not constant (tests/test_debugview.py's check)."""
+    out = {}
+    for name, kw, last in DEBUG_CONFIGS:
+        t0 = time.perf_counter()
+        r = Renderer(Config(scene="stress", width=W, height=H,
+                            cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_dbg"), **kw),
+                     device="cuda")
+        setup_s = time.perf_counter() - t0
+        reset_counts()
+        ms = []
+        for _ in range(frames):
+            f0 = time.perf_counter()
+            ldr = r.render_frame()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - f0) * 1e3)
+        launches = counts()
+        passes = [p.name for p in r.graph.passes if p.enabled]
+        std = float(ldr.float().std())
+        png = os.path.join(tempfile.gettempdir(), f"chip_smoke_debug_{len(out)}_1080p.png")
+        r.save_screenshot(png)
+        r.shutdown()
+        out[name] = dict(ms=statistics.median(ms[1:]), launches=launches)
+        log(f"phase28 {name} stress {W}x{H} x{frames} on {card}: setup {setup_s:.1f} s, frame "
+            f"ms {[round(x, 2) for x in ms]}, passes {passes}, launches {launches}, LDR std "
+            f"{std:.2f}, png {png}")
+        assert tuple(ldr.shape) == (H, W, 3) and ldr.dtype == torch.uint8
+        assert passes[-1] == last, passes
+        if "ddgi_debug" in kw:
+            assert passes[-3:] == ["DDGIDebug", "CSMDebug", "DebugView"], passes
+        assert std > 0, f"{name}: the debug image is constant"
+    return out
+
+
+def _lockstep_streamers(rs, clock):
+    """Give each of Renderers ``rs`` a sync-mode streamer on one injected
+    clock in place of its worker thread (the same tables: nothing has been
+    applied yet)."""
+    from hobbyrenderer_tpu_torch.scene.streaming import TextureStreamer
+    for r_ in rs:
+        pages = r_.streamer.budget_pages
+        r_.streamer.stop()
+        r_.streamer = TextureStreamer(r_.scene, budget_pages=pages, sync_mode=True,
+                                      now_fn=lambda: clock["t"])
+
+
+def _scripted_feedback(st, f):
+    """Frame ``f``'s demand histogram for streamer ``st``: every textured
+    material asks for mip 1 in frames 0-2 (more than a 128-page pool
+    holds); from frame 3 on, the two halves of them take turns asking for
+    mip 1 and for their tail, so that each turn downgrades one half: some
+    of its pages recycled LRU for the other half's upgrades, the rest
+    freed."""
+    fb = np.zeros((st.n_mats, st.tail_off.shape[1]), np.int64)
+    textured = [m for m in range(st.n_mats) if st.tail_mip[m] > 0]
+    for i, m in enumerate(textured):
+        up = f < 3 or (i < len(textured) // 2) == (f % 2 == 0)
+        fb[m, 1 if up else st.tail_mip[m]] = 100
+    return fb
+
+
+def phase_streaming_cuda_vs_cpu(Renderer, Config, card, W=256, H=192, frames=8):
+    """Phase 29, CUDA (kernels) against the CPU (plain versions) at 256x192
+    on stress:4: (1) the streamed flagship in a 2 MB pool (128 pages) with
+    sync-mode streamers in lockstep, driven by one scripted feedback
+    sequence (``_scripted_feedback``; the clock 0.6 s a frame past a 0.5 s
+    hysteresis: upgrades, downgrades that free pages, LRU recycling), the
+    streaming tables equal after every apply and the frames >= 99% within
+    2/255; (2) every name in ALL_VIEWS on one frame's captured DebugView
+    inputs per family, CUDA against the same inputs on the CPU, >= 99%
+    within 2/255; (3) the streamed path tracer in lockstep, phase 17's
+    gate (>= 99% within 2/255)."""
+    from hobbyrenderer_tpu_torch.models import deferred as dmod
+    from hobbyrenderer_tpu_torch.ops import debugview as dvops
+    t0 = time.perf_counter()
+    cfg = Config(scene="stress:4", width=W, height=H, tex_streaming=True, tex_budget_mb=2,
+                 cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke4stream"), **FLAGSHIP)
+    rs = [Renderer(cfg, device=dev) for dev in ("cuda", "cpu")]
+    clock = {"t": 0.0}
+    _lockstep_streamers(rs, clock)
+    for r_ in rs:
+        r_.streamer.hysteresis_s = 0.5
+    applies, freed, worst = 0, 0, 1.0
+    for f in range(frames):
+        pend = rs[0].streamer._pending
+        lg = rs[0].render_frame().cpu().numpy()
+        lc = rs[1].render_frame().numpy()
+        if pend is not None:
+            applies += 1
+            freed += bool(pend.freed)
+            tg, tc = rs[0].gpu.tex_stream, rs[1].gpu.tex_stream
+            for k in ("mat_resident", "page_table", "tex_pool"):
+                assert torch.equal(getattr(tg, k).cpu(), getattr(tc, k)), (f, k)
+        diff = np.abs(lg.astype(np.int32) - lc.astype(np.int32)).max(-1)
+        within = float(np.mean(diff <= 2))
+        worst = min(worst, within)
+        assert within >= 0.99, (f, within)
+        clock["t"] += 0.6
+        fb = _scripted_feedback(rs[0].streamer, f)
+        for r_ in rs:
+            r_.streamer.publish_feedback(fb.copy())
+            r_.streamer.poll()
+    res = rs[0].stats()["stream_resident_mips"]
+    for r_ in rs:
+        r_.shutdown()
+    log(f"phase29 streamed flagship stress:4 {W}x{H} x{frames} frames cuda vs cpu, 128-page "
+        f"pool in lockstep: {applies} applies ({freed} freeing pages: the whole page table "
+        f"re-uploaded), mat_resident / page_table / tex_pool equal after every apply, the "
+        f"worst frame {worst * 100:.3f}% of LDR pixels within 2/255; last resident mips {res} "
+        f"({time.perf_counter() - t0:.1f} s on {card} and the host)")
+    assert applies >= frames - 3 and freed >= 1, (applies, freed)
+
+    # (2) every view, CUDA against CPU on one frame's captured inputs
+    families = (("csm", dict(mode="normal_basic", debug_view="csm_cascade_splits"),
+                 dvops.CSM_VIEWS),
+                ("ssgi", dict(mode="normal_basic", indirect_mode="ssgi",
+                              debug_view="ssgi_hit_mask"), dvops.SSGI_VIEWS),
+                ("sharc", dict(direct_mode="restir", indirect_mode="sharc",
+                               debug_view="sharc_heatmap"), dvops.SHARC_VIEWS))
+    for fam, kw, names in families:
+        t0 = time.perf_counter()
+        r = Renderer(Config(scene="stress:4", width=W, height=H,
+                            cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke4dv"), **kw),
+                     device="cuda")
+        seen = {}
+        ps = r.graph.get("DebugView")
+        fn = ps.fn
+
+        def spy(ctx, res_, fn=fn):
+            seen["ctx"] = ctx
+            seen["res"] = {k: res_[k] for k in ps.reads}
+            fn(ctx, res_)
+        ps.fn = spy
+        for _ in range(2):
+            r.render_frame()
+        r.shutdown()
+        ctx, res_g = seen["ctx"], seen["res"]
+        res_c = {k: _to_device(v, "cpu") for k, v in res_g.items()}
+        # the CSM views read the material table's alpha modes from the scene
+        ctx_c = type(ctx)(gpu=types.SimpleNamespace(mat_i=ctx.gpu.mat_i.cpu()),
+                          vc=_to_device(ctx.vc, "cpu"), settings=ctx.settings)
+        rows = {}
+        for name in names:
+            ig = dmod.to_ldr8(dmod.debug_view_image(ctx, res_g, res_g["gbuffer"], name, H, W))
+            ic = dmod.to_ldr8(dmod.debug_view_image(ctx_c, res_c, res_c["gbuffer"], name, H, W))
+            d = (ig.cpu().to(torch.int32) - ic.to(torch.int32)).abs().amax(-1)
+            rows[name] = float((d <= 2).float().mean())
+        log(f"phase29 {fam} views cuda vs cpu on one stress:4 {W}x{H} frame's DebugView "
+            f"inputs: share of pixels within 2/255 {json.dumps(rows)} "
+            f"({time.perf_counter() - t0:.1f} s on {card} and the host)")
+        assert all(v >= 0.99 for v in rows.values()), rows
+
+    # (3) the streamed path tracer in lockstep
+    t0 = time.perf_counter()
+    cfg = Config(scene="stress:4", width=W, height=H, mode="path_tracer", tex_streaming=True,
+                 tex_budget_mb=2, cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke4pts"))
+    rs = [Renderer(cfg, device=dev) for dev in ("cuda", "cpu")]
+    clock = {"t": 0.0}
+    _lockstep_streamers(rs, clock)
+    fb = np.zeros((rs[0].streamer.n_mats, rs[0].streamer.tail_off.shape[1]), np.int64)
+    for m in range(fb.shape[0]):
+        if rs[0].streamer.tail_mip[m] > 0:
+            fb[m, 1] = 100                                   # mips 2 and 1: 20 tiles each
+    for r_ in rs:
+        for _ in range(3):
+            r_.streamer.publish_feedback(fb.copy())
+            r_.streamer.poll()
+            r_.gpu = dataclasses.replace(
+                r_.gpu, tex_stream=r_.streamer.apply_updates(r_.gpu.tex_stream),
+                meta=r_.gpu.meta)
+    paged = int((rs[0].gpu.tex_stream.page_table >= 0).sum())
+    assert torch.equal(rs[0].gpu.tex_stream.page_table.cpu(), rs[1].gpu.tex_stream.page_table)
+    for _ in range(3):
+        lg = rs[0].render_frame().cpu().numpy()
+        lc = rs[1].render_frame().numpy()
+    for r_ in rs:
+        r_.shutdown()
+    diff = np.abs(lg.astype(np.int32) - lc.astype(np.int32)).max(-1)
+    within = float(np.mean(diff <= 2))
+    log(f"phase29 streamed path tracer stress:4 {W}x{H} x3 frames cuda vs cpu ({paged} pages "
+        f"resident): {within * 100:.3f}% of LDR pixels within 2/255, mean |d| "
+        f"{float(diff.mean()):.4f}, max {int(diff.max())} ({time.perf_counter() - t0:.1f} s on "
+        f"{card} and the host)")
+    assert paged > 0
+    assert within >= 0.99, within
 
 
 def main():
@@ -2058,6 +2509,17 @@ def main():
     # ---- phase 26: this slice's configurations, CUDA against CPU ----------
     phase_env_anim_cuda_vs_cpu(Renderer, Config, env_path, card)
 
+    # ---- phase 27: the streamed flagship at 1080p, the plain one in turns --
+    sf = phase_streamed_flagship(Renderer, Config, reset_counts, counts, time_passes,
+                                 median_ms, card, bench_raster, bench_k2k4)
+    launches_sf = sf["launches"]
+
+    # ---- phase 28: the debug views and overlays at 1080p ------------------
+    dvs = phase_debug_views(Renderer, Config, reset_counts, counts, card)
+
+    # ---- phase 29: streaming and the views, CUDA against CPU --------------
+    phase_streaming_cuda_vs_cpu(Renderer, Config, card)
+
     assert not late_failures, late_failures
     jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not jax_mods, f"the port loaded jax: {jax_mods[:5]}"
@@ -2077,7 +2539,7 @@ def main():
                     launches_ibl_combined_regir_path=launches_ib[key],
                     launches_env_anim_path=launches_ea[key], launches_taau_path=tu["launches"][key],
                     launches_pt=launches_pt[key], launches_bench_wkernels=launches_wk[key],
-                    **extra)
+                    launches_streamed_path=launches_sf[key], **extra)
 
     def wk_entry(name, key, replaces, variants):
         # ms: the kernel's own device time (CUPTI); call_ms adds the launch
@@ -2099,21 +2561,22 @@ def main():
         entry("raster_resolve_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
               "hobbyrenderer_tpu/ops/raster_pallas.py:212", "K1", attr_err, k1_ms, k1_plain_ms,
               k1_bound, unit_items=rk.UNIT_ITEMS, calls=[raster_summary(x) for x in k1_rows],
-              taau_internal_call=tu["k1"]),
+              taau_internal_call=tu["k1"], streamed_frame=sf["held"]["k1"]),
         entry("restir_candidates", "hobbyrenderer_tpu_torch/csrc/restir_candidates.cu",
               "hobbyrenderer_tpu/ops/restir_pallas.py:65", "K2", k2_err, k2_ms, k2_plain_ms,
               k2_bound, issue_ms=k2_issue_ms, issue_clock_mhz=clock_mhz,
               sass_per_candidate=k2_sass.get("per_candidate"), regir_table=k2_regir,
               env_light_pool={k: ea_k["k2"][k] for k in ("equal", "repeat_equal", "ms",
                                                          "plain_ms", "bound_ms", "bound_by",
-                                                         "max_abs_err", "directional_slots")}),
+                                                         "max_abs_err", "directional_slots")},
+              streamed_frame=sf["held"]["k2"]),
         entry("bvh16_walk", "hobbyrenderer_tpu_torch/csrc/bvh16_walk.cu",
               "hobbyrenderer_tpu/ops/wtrace.py:71", "K3", k3_main["err"], k3_main["ms"],
               k3_main["plain_ms"], k3_main["bound"], rays=k3_main["rays"],
               walks={x["name"]: [x["rays"], x["ms"], x["plain_ms"], x["bound"][0]]
                      for x in k3_rows + pt["k3_rows"]},
               gsteps_per_s={x["name"]: x["gsteps"] for x in k3_rows + pt["k3_rows"]},
-              refitted_walks=ea_k["k3"]),
+              refitted_walks=ea_k["k3"], streamed_frame=sf["held"]["k3"]),
         entry("beam_any_hit_tiles", "hobbyrenderer_tpu_torch/csrc/beam_any_hit.cu",
               "hobbyrenderer_tpu/ops/beam.py:68", "K4", k4_err, k4_main["ms"],
               k4_main["plain_ms"], (k4_main["bound_ms"], k4_main["bound_by"]),
@@ -2121,7 +2584,8 @@ def main():
                              bound_by=x["bound_by"], active_lanes=x["active"],
                              live_lanes=x["live"], max_steps=x["max_steps"],
                              mismatches=x["mismatches"])
-                     for k, x in k4_rows.items()}, refitted_calls=ea_k["k4"]),
+                     for k, x in k4_rows.items()}, refitted_calls=ea_k["k4"],
+              streamed_frame=sf["held"]["k4"]),
         entry("raster_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
               "hobbyrenderer_tpu/ops/raster_pallas.py:148", "K5", k5_main["attr_max_err"],
               k5_main["ms"], k5_main["plain_ms"], (k5_main["bound_ms"], k5_main["bound_by"]),
@@ -2145,6 +2609,11 @@ def main():
     log(f"env + animated flagship 1080p on {card}: " + json.dumps(
         {"setup_s": ea["setup_s"], "ms": ea["ms"], "taau_ms": tu["ms"], "busy": ea["busy"],
          "host_syncs": ea["syncs"], "refit": ea_k["refit"]}))
+    log(f"streamed flagship 1080p on {card}: " + json.dumps(
+        {k: sf[k] for k in ("setup_s", "ms", "plain_ms", "settled_frame", "tiles", "applied_ms",
+                            "syncs", "syncs_by_pass")}
+        | {"frame_tex_streaming_ms": sf["pass_ms"]["Frame/TexStreaming"],
+           "debug_views_ms": {k: v["ms"] for k, v in dvs.items()}}))
     log(f"chip_smoke total seconds: {time.perf_counter() - t_start:.1f}")
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

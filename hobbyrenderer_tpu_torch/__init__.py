@@ -2,11 +2,11 @@
 
 The JAX package (``hobbyrenderer_tpu``) stays the reference. This package runs
 the deferred frame in every (mode, direct, indirect) pair, the reference path
-tracer, environment maps, animated scenes (refitted on the device) and TAA
-upscaling with PyTorch on an explicit device; the TPU kernels are
-hand-written CUDA C++ for Hopper (``csrc/``), each beside a plain PyTorch
-version that runs on CPU tensors. Texture streaming, the debug views and
-multi-GPU are not ported yet (ROADMAP.md, Queue 1).
+tracer, environment maps, animated scenes (refitted on the device), TAA
+upscaling, texture streaming and the debug views with PyTorch on an explicit
+device; the TPU kernels are hand-written CUDA C++ for Hopper (``csrc/``),
+each beside a plain PyTorch version that runs on CPU tensors. Multi-GPU is
+not ported yet (ROADMAP.md, Queue 1).
 
 The port keeps its own copies of the host modules it needs and imports
 nothing of the JAX package: ``config``, ``scene.{scene,cooker,procedural,

@@ -17,6 +17,10 @@ Usage:
         --mode path_tracer --frames 8             # the reference path tracer
     python -m hobbyrenderer_tpu_torch --scene stress --frames 8 --direct-mode restir \
         --envmap sky.hdr --env-lights 64 --render-scale 0.5   # env lights, TAA upscaling
+    python -m hobbyrenderer_tpu_torch --scene stress --frames 24 --direct-mode restir \
+        --indirect-mode restir --tex-streaming --tex-debug     # streamed textures
+    python -m hobbyrenderer_tpu_torch --scene stress --mode normal_basic \
+        --indirect-mode ssgi --debug-view ssgi_hit_mask        # a named debug view
 """
 
 from __future__ import annotations
@@ -82,6 +86,22 @@ def main(argv=None):
                    help="prebaked prefiltered radiance map (equirect)")
     p.add_argument("--brdflut", type=str, default=None,
                    help="authored split-sum BRDF LUT image (default: the analytic fit)")
+    p.add_argument("--tex-streaming", action="store_true",
+                   help="budgeted texture residency: a worker thread streams 32x32 tiles into "
+                        "a paged pool as the frames' feedback asks for them")
+    p.add_argument("--tex-budget-mb", type=int, default=64,
+                   help="the streamed texel pool's size (16-byte texels)")
+    p.add_argument("--tex-debug", action="store_true",
+                   help="texture-streaming residency heatmap over the frame (with "
+                        "--tex-streaming)")
+    p.add_argument("--debug-view", dest="debug_view", type=str, default=None,
+                   help="a named debug view in place of the frame: csm_* (normal_basic), "
+                        "ssgi_* (--indirect-mode ssgi), sharc_* (sharc / combined); see "
+                        "ops/debugview.py for the names")
+    p.add_argument("--csm-debug", action="store_true",
+                   help="cascade tint and shadow-map thumbnails over the frame (normal_basic)")
+    p.add_argument("--ddgi-debug", action="store_true",
+                   help="DDGI probes as dots over the frame (--indirect-mode ddgi)")
     p.add_argument("--execute-per-pass", action="store_true",
                    help="wait for and time each pass on its own (rows in --timings)")
     p.add_argument("--tune-file", dest="tune_file", type=str, default=None, metavar="PATH",
@@ -106,6 +126,9 @@ def main(argv=None):
                  specular_indirect=a.specular_indirect, envmap=a.envmap,
                  env_lights=a.env_lights, irradiance=a.irradiance, radiance=a.radiance,
                  brdflut=a.brdflut, execute_per_pass=a.execute_per_pass, tune_file=a.tune_file,
+                 tex_streaming=a.tex_streaming, tex_budget_mb=a.tex_budget_mb,
+                 tex_debug=a.tex_debug, debug_view=a.debug_view, csm_debug=a.csm_debug,
+                 ddgi_debug=a.ddgi_debug,
                  keep_hdr=bool(a.screenshot and a.screenshot.lower().endswith(".hdr")))
     from hobbyrenderer_tpu_torch.renderer import Renderer
     r = Renderer(cfg, device=a.device)

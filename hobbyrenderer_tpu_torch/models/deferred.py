@@ -42,6 +42,15 @@ ops/csm.py and ops/sss.py) and runs none of the ray-traced lighting passes
 (RTXDI, RTXDIGI, SHARC, SpecularIndirect). ``pass_gates`` holds these
 rules, the JAX package's.
 
+Under texture streaming (``gpu.tex_stream``) every resolve samples through
+the residency tables and ResolveGBuffer also writes the frame's demand
+histogram ("tex_feedback", fetched by the Renderer for its streamer). The
+debug passes run after Tonemap on the uint8 frame, at native resolution
+only: DDGIDebug (``ddgi_debug`` with DDGI), CSMDebug (``csm_debug`` in
+NormalBasic), TexResidencyDebug (``tex_debug`` under streaming) and, with
+``debug_view``, DebugView (one of ops/debugview.py's named views, checked
+when the graph is built as the JAX graph checks it).
+
 Raster passes go through the tile-raster kernel K1 (ops/raster_kernel.py),
 the shadow atlas through its depth-only sibling K5, SunShadow, the RTXDI
 winner rays and the GI sample visibility through the any-hit kernel K4
@@ -62,11 +71,13 @@ import torch
 
 from hobbyrenderer_tpu_torch.config import RenderingMode
 from hobbyrenderer_tpu_torch.scene.cooker import MESHLET_MAX_TRIS
+from hobbyrenderer_tpu_torch.scene.gpu import MATI_ALPHA_MODE
 from hobbyrenderer_tpu_torch.graph.rendergraph import FrameContext, RenderGraph, render_pass
 from hobbyrenderer_tpu_torch.ops import beam as beamops
 from hobbyrenderer_tpu_torch.ops import csm as csmops
 from hobbyrenderer_tpu_torch.ops import culling as cullops
 from hobbyrenderer_tpu_torch.ops import ddgi as ddgiops
+from hobbyrenderer_tpu_torch.ops import debugview as dvops
 from hobbyrenderer_tpu_torch.ops import denoise as dnops
 from hobbyrenderer_tpu_torch.ops import envmap as envops
 from hobbyrenderer_tpu_torch.ops import hzb as hzbops
@@ -150,7 +161,10 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
                          specular_indirect: bool = False, with_rt_shadows: bool = True,
                          regir: bool = False, regir_mode: str = "onion",
                          scene_bounds=None, env_as_lights: bool = False,
-                         out_width: int = None, out_height: int = None) -> RenderGraph:
+                         out_width: int = None, out_height: int = None,
+                         streaming: bool = False, tex_debug: bool = False,
+                         csm_debug: bool = False, ddgi_debug: bool = False,
+                         debug_view: str = None) -> RenderGraph:
     g = RenderGraph()
     gates = pass_gates(mode, direct_mode, indirect_mode, specular_indirect, with_rt_shadows)
     use_restir, use_restir_gi = gates["use_restir"], gates["use_restir_gi"]
@@ -166,6 +180,11 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
     h0, w0, hzb_levels = hzbops.hzb_sizes(width, height)
     hzb_eff = hzbops.hzb_effective_size(width, height)
     ow, oh = out_width or width, out_height or height
+    upscale = (ow, oh) != (width, height)
+    dv_csm = bool(debug_view and debug_view.startswith("csm_"))
+    dv_ssgi = bool(debug_view and debug_view.startswith("ssgi_"))
+    dv_sharc = bool(debug_view and debug_view.startswith("sharc_"))
+    want_tex_debug = tex_debug and streaming
 
     def env_fn(ctx):
         """The environment map's lookup, or None (the procedural sky)."""
@@ -245,11 +264,20 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
     @g.add
     @render_pass("ResolveGBuffer", reads=("raster_depth", "raster_visid",
                                           "raster_attr"),
-                 writes=("gbuffer",))
+                 writes=("gbuffer",) + (("tex_feedback",) if streaming else ())
+                 + (("tex_clamp",) if want_tex_debug else ()))
     def _resolve(ctx, res):
+        """The G-buffer; under texture streaming also the demand histogram
+        for the host streamer (and with ``tex_debug`` the residency clamp)."""
         ro = rasterops.RasterOutput(res["raster_depth"], res["raster_visid"], None)
-        res["gbuffer"] = rasterops.resolve_gbuffer(ctx.gpu, ctx.vc, ro,
-                                                   res["raster_attr"])
+        out = rasterops.resolve_gbuffer(ctx.gpu, ctx.vc, ro, res["raster_attr"],
+                                        want_feedback=streaming, want_tex_debug=want_tex_debug)
+        if want_tex_debug:
+            res["gbuffer"], res["tex_feedback"], res["tex_clamp"] = out
+        elif streaming:
+            res["gbuffer"], res["tex_feedback"] = out
+        else:
+            res["gbuffer"] = out
 
     @g.add
     @render_pass("MaskedLayer", reads=("gbuffer",), writes=("gbuffer",))
@@ -311,15 +339,18 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         g.get("SunShadow").enabled = False
 
     @g.add
-    @render_pass("ShadowCSM", reads=("gbuffer",), writes=("sun_shadow",))
+    @render_pass("ShadowCSM", reads=("gbuffer",),
+                 writes=("sun_shadow",) + (("csm_data",) if csm_debug or dv_csm else ()))
     def _shadow_csm(ctx, res):
         """NormalBasic sun shadows: the 4-cascade depth atlas (one K5 call),
         a half-res PCF mask bilinearly upsampled, times screen-space contact
-        shadows."""
+        shadows. The cascades are kept for the CSM debug views."""
         gb = res["gbuffer"]
         sun_dir = _scene_sun_dir(ctx)
         data = csmops.render_cascades(ctx.gpu, ctx.vc, sun_dir, shadow_capacity,
                                       max_distance=csm_max_distance)
+        if csm_debug or dv_csm:
+            res["csm_data"] = data
         s = 2
         sh, sw = height // s, width // s
         mask = csmops.csm_shadow_mask(data, ctx.vc, gb.world_pos[::s, ::s][:sh, :sw],
@@ -558,14 +589,28 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         g.get("DDGI").enabled = False
 
     @g.add
-    @render_pass("SSGI", reads=("gbuffer", "taa_history", "ssgi_state"),
-                 writes=("ssgi_indirect", "ssgi_state"), persistent=("ssgi_state",))
+    @render_pass("SSGI", reads=("gbuffer", "taa_history", "ssgi_state")
+                 + (("sky_irradiance",) if dv_ssgi else ()),
+                 writes=("ssgi_indirect", "ssgi_state") + (("ssgi_debug",) if dv_ssgi else ()),
+                 persistent=("ssgi_state",))
     def _ssgi(ctx, res):
-        """Screen-space GI: a half-res march against last frame's lit HDR,
-        then the RELAX chain."""
+        """Screen-space GI: a half-res march against last frame's lit HDR
+        (the TAA history, brought to the render size under upscaling), then
+        the RELAX chain; an ssgi_* debug view also keeps their
+        intermediates."""
         gb = res["gbuffer"]
-        raw = ssgiops.ssgi_half_res(gb, ctx.vc, res["taa_history"], ctx.vc["frame_index"])
-        res["ssgi_indirect"], res["ssgi_state"] = dnops.denoise(raw, gb, res["ssgi_state"])
+        prev = res["taa_history"]
+        if upscale:
+            prev = resize_bilinear(prev, height, width)
+        dv = {} if dv_ssgi else None
+        raw = ssgiops.ssgi_half_res(gb, ctx.vc, prev, ctx.vc["frame_index"], debug_out=dv,
+                                    irr=res["sky_irradiance"] if dv_ssgi else None)
+        res["ssgi_indirect"], res["ssgi_state"] = dnops.denoise(raw, gb, res["ssgi_state"],
+                                                                debug_out=dv)
+        if dv_ssgi:
+            dv["composed"] = res["ssgi_indirect"]
+            dv["view_dir"] = skyops.view_dirs_from_pixels(ctx.vc, height, width)
+            res["ssgi_debug"] = dv
 
     if not use_ssgi:
         g.get("SSGI").enabled = False
@@ -714,7 +759,106 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
     def _tonemap(ctx, res):
         res["ldr"] = postops.tonemap_to_output(res["hdr"], res["exposure"])
 
+    # the debug overlays read render-size G-buffer data against the output
+    # frame: native resolution only
+    @g.add
+    @render_pass("DDGIDebug", reads=("ldr", "ddgi_volume"), writes=("ldr",))
+    def _ddgi_debug(ctx, res):
+        """The probe view: live probes as dots of their mean irradiance, dead
+        ones red."""
+        res["ldr"] = ddgiops.ddgi_probe_overlay(res["ldr"], res["ddgi_volume"], ctx.vc)
+
+    if not (use_ddgi and ddgi_debug) or upscale:
+        g.get("DDGIDebug").enabled = False
+
+    @g.add
+    @render_pass("CSMDebug", reads=("ldr", "csm_data", "gbuffer"), writes=("ldr",))
+    def _csm_debug(ctx, res):
+        """The cascade view: a per-pixel cascade tint and the depth maps as
+        thumbnails."""
+        gb = res["gbuffer"]
+        res["ldr"] = csmops.csm_debug_overlay(res["ldr"], res["csm_data"], ctx.vc,
+                                              gb.world_pos, gb.valid)
+
+    if not (csm_debug and mode == RenderingMode.NORMAL_BASIC) or upscale:
+        g.get("CSMDebug").enabled = False
+
+    @g.add
+    @render_pass("TexResidencyDebug", reads=("ldr", "tex_clamp"), writes=("ldr",))
+    def _tex_debug(ctx, res):
+        """The texture-streaming residency heatmap: each textured pixel
+        tinted by how many mips coarser its sample came back than its
+        footprint asked for (green: the desired mip is resident, yellow
+        about one mip short, red three or more)."""
+        res["ldr"] = tex_residency_overlay(res["ldr"], res["tex_clamp"])
+
+    if not want_tex_debug or upscale:
+        g.get("TexResidencyDebug").enabled = False
+
+    if debug_view:
+        if debug_view not in dvops.ALL_VIEWS:
+            raise ValueError(f"unknown --debug-view '{debug_view}' "
+                             f"(one of {', '.join(dvops.ALL_VIEWS)})")
+        if upscale:
+            raise ValueError("--debug-view needs native resolution (no --render-scale)")
+        if dv_csm and mode != RenderingMode.NORMAL_BASIC:
+            raise ValueError("csm_* debug views need --mode normal_basic "
+                             "(CSM is the NormalBasic sun-shadow path)")
+        if dv_ssgi and not use_ssgi:
+            raise ValueError("ssgi_* debug views need --indirect-mode ssgi")
+        if dv_sharc and not (use_sharc or use_sharc_traced):
+            raise ValueError("sharc_* debug views need --indirect-mode sharc/combined")
+
+        @g.add
+        @render_pass("DebugView", reads=("ldr", "gbuffer")
+                     + (("csm_data", "sun_shadow") if dv_csm else ())
+                     + (("ssgi_debug",) if dv_ssgi else ())
+                     + (("sharc_cache", "sharc_indirect") if dv_sharc else ()),
+                     writes=("ldr",))
+        def _debug_view(ctx, res):
+            """The named debug view (ops/debugview.py) in place of the
+            frame."""
+            gb = res["gbuffer"]
+            res["ldr"] = to_ldr8(debug_view_image(ctx, res, gb, debug_view, height, width))
+
     return g
+
+
+def to_ldr8(img):
+    """A float [0, 1] debug image -> uint8 (clip(x, 0, 1) * 255 + 0.5)."""
+    return (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
+def tex_residency_overlay(ldr, clamp):
+    """TexResidencyDebug's body: ldr (H, W, 3) uint8, clamp (H, W) mips
+    clamped away -> uint8."""
+    t = torch.clamp(clamp / 3.0, 0.0, 1.0)
+    heat = torch.stack([torch.clamp(2.0 * t, 0.0, 1.0), torch.clamp(2.0 - 2.0 * t, 0.0, 1.0),
+                        torch.zeros_like(t)], -1)
+    w = torch.where(clamp > 1e-3, 0.55, 0.22)[..., None]
+    return to_ldr8(ldr.to(torch.float32) / 255.0 * (1.0 - w) + heat * w)
+
+
+def debug_view_image(ctx, res, gb, name: str, height: int, width: int):
+    """The DebugView pass's float image of view ``name`` from the frame's
+    resources (csm_data and sun_shadow, ssgi_debug, or the SHARC cache and
+    sharc_indirect)."""
+    ldr_f = res["ldr"].to(torch.float32) / 255.0
+    if name.startswith("csm_"):
+        mid = torch.clamp(gb.material, min=0)
+        masked = (ctx.gpu.mat_i[mid, MATI_ALPHA_MODE] == 1) & (gb.material >= 0)
+        return dvops.csm_view(name, ldr_f, gb, res["csm_data"], ctx.vc, res["sun_shadow"],
+                              masked=masked)
+    if name.startswith("ssgi_"):
+        return dvops.ssgi_view(name, ldr_f, gb, res["ssgi_debug"])
+    cam = ctx.vc["camera_pos"]
+    pos = gb.world_pos.reshape(-1, 3)
+    nrm = gb.normal.reshape(-1, 3)
+    _, hit = sharcops.sharc_query(res["sharc_cache"], pos, nrm, cam)
+    dv = {"cell": sharcops._cell_key(pos, nrm, cam).reshape(height, width),
+          "radiance": res["sharc_indirect"],
+          "hit": hit.reshape(height, width).to(torch.float32)}
+    return dvops.sharc_view(name, ldr_f, gb, dv)
 
 
 def initial_frame_state(width: int, height: int, device, use_restir: bool = False,
@@ -761,7 +905,11 @@ class DeferredRenderer:
     ``out_width`` / ``out_height``: the output size (TAA upscales to it);
     ``execute_per_pass``: each pass runs and is timed on its own
     (RenderGraph.execute_per_pass, timings in ``graph.last_pass_timings``).
-    ``keep`` names resources to keep from each frame in ``last_resources``."""
+    ``keep`` names resources to keep from each frame in ``last_resources``.
+    Under texture streaming (``gpu.tex_stream``) ``last_stats`` carries the
+    frame's demand histogram as "tex_feedback" (a device tensor);
+    ``tex_debug``, ``csm_debug``, ``ddgi_debug`` and ``debug_view`` are the
+    debug overlays and views."""
 
     def __init__(self, gpu, width: int, height: int, rt, shadow_scale: int,
                  mode: str = RenderingMode.NORMAL, direct_mode: str = "simple",
@@ -769,8 +917,10 @@ class DeferredRenderer:
                  denoiser_profile: str = "relax", specular_indirect: bool = False,
                  regir: bool = False, regir_mode: str = "onion", env_as_lights: bool = False,
                  out_width: int = None, out_height: int = None,
-                 execute_per_pass: bool = False):
+                 execute_per_pass: bool = False, tex_debug: bool = False,
+                 csm_debug: bool = False, ddgi_debug: bool = False, debug_view: str = None):
         self.width, self.height = width, height
+        self.streaming = gpu.tex_stream is not None
         self.out_width, self.out_height = out_width or width, out_height or height
         self.execute_per_pass = execute_per_pass
         self.rt = rt
@@ -792,7 +942,9 @@ class DeferredRenderer:
             denoiser_profile=denoiser_profile, scene_radius=m["scene_radius"],
             specular_indirect=specular_indirect, with_rt_shadows=rt is not None,
             regir=regir, regir_mode=regir_mode, scene_bounds=m["scene_bounds"],
-            env_as_lights=env_as_lights, out_width=self.out_width, out_height=self.out_height)
+            env_as_lights=env_as_lights, out_width=self.out_width, out_height=self.out_height,
+            streaming=self.streaming, tex_debug=tex_debug, csm_debug=csm_debug,
+            ddgi_debug=ddgi_debug, debug_view=debug_view)
         self.state = initial_frame_state(width, height, gpu.device, self.use_restir,
                                          indirect_mode, m["scene_bounds"], specular_indirect,
                                          self.out_width, self.out_height)
@@ -822,6 +974,8 @@ class DeferredRenderer:
             outputs += list(SHARCQ_STATS)
         if self.use_spec:
             outputs += list(SPEC_STATS)
+        if self.streaming:
+            outputs += ["tex_feedback"]
         run = self.graph.execute_per_pass if self.execute_per_pass else self.graph.execute
         o = run(ctx, self.state, outputs=outputs + list(self.keep))
         self.last_resources = {k: o[k] for k in self.keep}
@@ -858,4 +1012,6 @@ class DeferredRenderer:
                            (self.use_spec, SPEC_STATS)):
             if use:
                 self.last_stats.update({k: o[k] for k in names})
+        if self.streaming:
+            self.last_stats["tex_feedback"] = o["tex_feedback"]
         return o["ldr"]

@@ -175,8 +175,9 @@ def _bounce(gpu, rt: SceneRT, vc, settings, height: int, p: _Paths, bounce: int,
     trans = mf[:, MAT_TRANSMISSION]
     alpha_v = mf[:, MAT_BASE_COLOR + 3]
 
-    # texturing at the hit, LOD from a ray-cone footprint
-    if gpu.tex_table.shape[0] > gpu.mat_f.shape[0]:
+    # texturing at the hit (through the residency tables under streaming),
+    # LOD from a ray-cone footprint
+    if gpu.tex_stream is not None or gpu.tex_table.shape[0] > gpu.mat_f.shape[0]:
         tex_size = mf[:, MAT_TEX_SIZE]
         tex_base = (torch.round(mf[:, MAT_TEX_BASE_HI]).to(torch.int64) * 4096
                     + torch.round(mf[:, MAT_TEX_BASE_LO]).to(torch.int64))
@@ -185,7 +186,10 @@ def _bounce(gpu, rt: SceneRT, vc, settings, height: int, p: _Paths, bounce: int,
         foot = torch.where(torch.isfinite(hit.t), hit.t, 1.0) * spread
         lod = torch.log2(torch.clamp(tex_size * foot, min=1e-6))
         bits = pcg3d(torch.stack([pix, frame, torch.full_like(pix, dim + 5)], -1))
-        ts = texops.sample_material(gpu, tex_size, tex_base, uv_s, lod, bits)
+        if gpu.tex_stream is not None:
+            ts = texops.sample_material_streamed(gpu.tex_stream, mat, uv_s, lod, bits)
+        else:
+            ts = texops.sample_material(gpu, tex_size, tex_base, uv_s, lod, bits)
         albedo = albedo * ts.albedo
         alpha_v = alpha_v * ts.alpha
         rough = torch.clamp(rough * ts.roughness, shadeops.MIN_ROUGHNESS, 1.0)

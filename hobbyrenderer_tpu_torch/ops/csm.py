@@ -127,6 +127,38 @@ def render_cascades(gpu, vc, sun_dir, visible_capacity: int,
     return CSMData(view_proj=vps, depth=depth, splits=splits)
 
 
+CASCADE_COLORS = ((1.0, 0.25, 0.25), (0.25, 1.0, 0.25),
+                  (0.3, 0.45, 1.0), (1.0, 1.0, 0.3))
+
+
+def csm_debug_overlay(ldr, csm: CSMData, vc, world_pos, valid):
+    """The cascade debug view: each pixel tinted by its selected cascade,
+    and the cascade depth maps inset as thumbnails along the bottom edge.
+    ldr (H, W, 3) uint8 -> uint8."""
+    H, W = ldr.shape[0], ldr.shape[1]
+    V = vc["view"]
+    dist = -(torch.einsum("ij,hwj->hwi", V[:3, :3], world_pos) + V[:3, 3])[..., 2]
+    cidx = torch.clamp(torch.sum((dist[..., None] > csm.splits).to(torch.int64), -1),
+                       0, NUM_CASCADES - 1)
+    colors = torch.tensor(CASCADE_COLORS, dtype=torch.float32, device=ldr.device)
+    out = ldr.to(torch.float32) / 255.0
+    out = torch.where(valid[..., None], out * 0.65 + colors[cidx] * 0.35, out)
+    # thumbnails: a strided subsample of each cascade's depth map
+    th = max(H // 5, 8)
+    s = max(SHADOW_RES // th, 1)
+    pad = 8
+    for c in range(NUM_CASCADES):
+        x0 = pad + c * (th + pad)
+        if x0 + th > W:
+            break
+        thumb = csm.depth[c][::s, ::s][:th, :th]              # reversed-Z
+        img = thumb[..., None] * (0.75 * colors[c] + 0.25)
+        # the JAX package's dynamic_update_slice clamps the corner into the frame
+        y0 = min(max(H - th - pad, 0), H - img.shape[0])
+        out[y0:y0 + img.shape[0], x0:x0 + img.shape[1]] = img
+    return torch.clamp(torch.round(out * 255.0), 0, 255).to(torch.uint8)
+
+
 def csm_shadow_mask(csm: CSMData, vc, world_pos, normal, valid, sun_dir):
     """Visibility mask (H, W) of the shading points: cascade select by view
     distance, normal offset by the selected cascade's texel, 2x2 PCF with a

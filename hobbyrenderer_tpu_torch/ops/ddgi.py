@@ -222,3 +222,42 @@ def ddgi_query(vol: DDGIVolume, pos, normal):
                 acc = acc + _oct_sample(vol.irradiance, pid, normal) * w[..., None]
                 acc_w = acc_w + w
     return acc / torch.clamp(acc_w, min=1e-6)[..., None]
+
+
+def ddgi_probe_overlay(ldr, vol: DDGIVolume, vc, radius_px: float = 3.0):
+    """The probe view: each live probe splats a dot of its mean irradiance
+    (normalized to its largest channel), each dead probe a red dot; where
+    dots overlap the higher probe index wins, as in the JAX package's loop
+    over probes. ldr (H, W, 3) uint8 -> uint8 (the dots' colours written as
+    clip(c, 0, 1) * 255 + 0.5)."""
+    H, W = ldr.shape[0], ldr.shape[1]
+    dev = ldr.device
+    pos = probe_positions(vol)
+    VP = vc["view_proj_no_jitter"]
+    w = pos @ VP[3, :3] + VP[3, 3]
+    clip = pos @ VP[:3, :3].T + VP[:3, 3]
+    ndc = clip / torch.clamp(w, min=1e-6)[..., None]
+    x = (ndc[..., 0] * 0.5 + 0.5) * W
+    y = (0.5 - ndc[..., 1] * 0.5) * H
+    vis = (w > 1e-6) & (x >= 0) & (x < W) & (y >= 0) & (y < H)
+    color = vol.irradiance.mean((1, 2))                                  # (P, 3)
+    color = color / torch.clamp(color.amax(-1, keepdim=True), min=1e-3)
+    color = torch.where(vol.alive[:, None] > 0, color,
+                        torch.tensor([1.0, 0.0, 0.0], device=dev))
+    # the pixels (centres at integer coordinates) a dot can reach: a
+    # (2r + 1)^2 window about its centre, tested with the JAX distance
+    r = int(math.ceil(radius_px))
+    off = torch.arange(-r, r + 1, device=dev)
+    px = torch.floor(x).to(torch.int64)[:, None, None] + off[None, None, :]      # (P, 1, K)
+    py = torch.floor(y).to(torch.int64)[:, None, None] + off[None, :, None]      # (P, K, 1)
+    d2 = ((px.to(torch.float32) - x[:, None, None]) ** 2
+          + (py.to(torch.float32) - y[:, None, None]) ** 2)
+    hit = (d2 < radius_px * radius_px) & vis[:, None, None] \
+        & (px >= 0) & (px < W) & (py >= 0) & (py < H)
+    pid = torch.arange(pos.shape[0], device=dev)[:, None, None].expand_as(hit)
+    flat = (py.clamp(0, H - 1) * W + px.clamp(0, W - 1)).expand_as(hit)
+    top = torch.full((H * W,), -1, dtype=torch.int64, device=dev)
+    top.scatter_reduce_(0, flat[hit], pid[hit], reduce="amax")
+    top = top.reshape(H, W)
+    dot = (torch.clamp(color, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+    return torch.where((top >= 0)[..., None], dot[top.clamp(min=0)], ldr)

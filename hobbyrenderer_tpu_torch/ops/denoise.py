@@ -141,9 +141,11 @@ def demodulation_factor(gb):
     return torch.clamp(diff + f0, min=0.03)
 
 
-def denoise(signal, gb, state: DenoiseState, profile: str = "relax"):
+def denoise(signal, gb, state: DenoiseState, profile: str = "relax", debug_out: dict = None):
     """Full chain: demodulate, temporal accumulation, A-trous, remodulate.
-    Returns (denoised, new state)."""
+    Returns (denoised, new state). ``debug_out``: a dict that receives the
+    remodulated temporal and denoised signals and the history length (the
+    ssgi_* debug views)."""
     if profile not in ("relax", "reblur"):
         raise ValueError(f"unknown denoiser profile '{profile}'")
     mod = demodulation_factor(gb)
@@ -152,5 +154,7 @@ def denoise(signal, gb, state: DenoiseState, profile: str = "relax"):
     if profile == "reblur":
         # 8 px with no history -> near-identity as the accumulation converges
         radius = torch.clamp(8.0 / (1.0 + 0.5 * new_state.history), min=0.7)
-    out = atrous_filter(color, var, gb, radius_px=radius)
-    return out * mod, new_state
+    out = atrous_filter(color, var, gb, radius_px=radius) * mod
+    if debug_out is not None:
+        debug_out.update(temporal=color * mod, denoised=out, age=new_state.history)
+    return out, new_state

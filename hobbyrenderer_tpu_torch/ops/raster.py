@@ -311,13 +311,21 @@ def rasterize_shadow_atlas(gpu, vps, slots, res: int):
     return depth.reshape(n_views, res, res)
 
 
-def resolve_gbuffer(gpu, vc, raster: RasterOutput, attr_img,
-                    pix_ids=None) -> GBuffer:
+def resolve_gbuffer(gpu, vc, raster: RasterOutput, attr_img, pix_ids=None,
+                    want_feedback: bool = False, want_tex_debug: bool = False):
     """Per-pixel G-buffer from the kernel's interpolated attributes (H, W, 16):
     material constants, stochastic-trilinear texturing, normal mapping and
     motion vectors. ``pix_ids`` (H, W) global pixel ids let a caller resolve
     a compacted lane list: texture LOD then comes from the distance cone (no
-    screen derivatives across lanes) and normal maps are skipped."""
+    screen derivatives across lanes) and normal maps are skipped.
+
+    Under texture streaming (``gpu.tex_stream``) every table is textured
+    through the residency tables, even an untextured one; ``want_feedback``
+    then also returns the (Mat, MAX_MIPS) demand histogram (None without
+    streaming), and ``want_tex_debug`` that and the (H, W) residency clamp:
+    how many mips coarser each textured pixel's sample came back than its
+    footprint asked for. Returns the GBuffer, (GBuffer, feedback) or
+    (GBuffer, feedback, clamp)."""
     H, W = raster.depth.shape
     dev = raster.depth.device
     valid = raster.visid >= 0
@@ -343,7 +351,9 @@ def resolve_gbuffer(gpu, vc, raster: RasterOutput, attr_img,
     emissive = mf[..., MAT_EMISSIVE:MAT_EMISSIVE + 3]
     occlusion = torch.ones((H, W), dtype=torch.float32, device=dev)
 
-    if gpu.tex_table.shape[0] > gpu.mat_f.shape[0]:
+    tex_feedback = tex_clamp = None
+    stream = gpu.tex_stream
+    if stream is not None or gpu.tex_table.shape[0] > gpu.mat_f.shape[0]:
         tex_size = mf[..., MAT_TEX_SIZE]
         tex_base = (torch.round(mf[..., MAT_TEX_BASE_HI]).to(torch.int64) * 4096
                     + torch.round(mf[..., MAT_TEX_BASE_LO]).to(torch.int64))
@@ -358,7 +368,21 @@ def resolve_gbuffer(gpu, vc, raster: RasterOutput, attr_img,
             pix = torch.arange(H * W, dtype=torch.int64, device=dev).reshape(H, W)
         key = pcg3d(torch.stack([pix, torch.full_like(pix, vc["frame_index"]),
                                  torch.full_like(pix, 311)], -1))
-        ts = texops.sample_material(gpu, tex_size, tex_base, uv_s, lod, key)
+        if stream is not None:
+            # residency-clamped sampling, and the demand histogram the host
+            # streamer consumes
+            ts = texops.sample_material_streamed(stream, mat, uv_s, lod, key)
+            if want_feedback or want_tex_debug:
+                tex_feedback = texops.texture_feedback(torch.where(valid, mat, 0),
+                                                       torch.where(valid, lod, 30.0),
+                                                       gpu.mat_f.shape[0])
+            if want_tex_debug:
+                Mres = stream.mat_resident.shape[0]
+                res_mip = stream.mat_resident[torch.clamp(mat, 0, Mres - 1)].to(torch.float32)
+                tex_clamp = torch.clamp(res_mip - torch.clamp(lod, min=0.0), min=0.0)
+                tex_clamp = torch.where(valid & (tex_size > 1.5), tex_clamp, 0.0)
+        else:
+            ts = texops.sample_material(gpu, tex_size, tex_base, uv_s, lod, key)
         albedo = albedo * ts.albedo
         alpha = alpha * ts.alpha
         rough = rough * ts.roughness
@@ -386,7 +410,7 @@ def resolve_gbuffer(gpu, vc, raster: RasterOutput, attr_img,
     motion = torch.stack([psx - csx, psy - csy], -1)
 
     vmask = valid[..., None]
-    return GBuffer(
+    gb = GBuffer(
         albedo=torch.where(vmask, albedo, 0.0),
         normal=torch.where(vmask, n_shade, 0.0),
         geo_normal=torch.where(vmask, gn, 0.0),
@@ -398,3 +422,9 @@ def resolve_gbuffer(gpu, vc, raster: RasterOutput, attr_img,
         material=torch.where(valid, mat, -1),
         valid=valid,
         alpha=torch.where(valid, alpha_margin, 0.0))
+    if want_tex_debug:
+        return gb, tex_feedback, (tex_clamp if tex_clamp is not None
+                                  else torch.zeros((H, W), dtype=torch.float32, device=dev))
+    if want_feedback:
+        return gb, tex_feedback
+    return gb

@@ -22,8 +22,12 @@ MARCH_DISTANCE = 4.0      # world units
 THICKNESS = 0.35          # relative depth-gap acceptance
 
 
-def ssgi_half_res(gb, vc, prev_hdr, frame_index: int):
-    """(H, W, 3) indirect radiance from a march at half resolution."""
+def ssgi_half_res(gb, vc, prev_hdr, frame_index: int, debug_out: dict = None, irr=None):
+    """(H, W, 3) indirect radiance from a march at half resolution.
+    ``debug_out``: a dict that receives the march's intermediates for the
+    ssgi_* debug views (ops/debugview.py): the half-res irradiance, hit
+    mask, hit distance over the march length, the radiance read at the hit,
+    and the sky irradiance (SH ``irr``, (9, 3)) along each march direction."""
     H, W = gb.depth.shape
     dev = gb.depth.device
     sh, sw = H // 2, W // 2
@@ -52,6 +56,7 @@ def ssgi_half_res(gb, vc, prev_hdr, frame_index: int):
 
     hit_col = torch.zeros((R, 3), device=dev)
     found = torch.zeros(R, dtype=torch.bool, device=dev)
+    hit_t = torch.zeros(R, device=dev)
     # geometric step schedule biased toward the origin
     for k in range(MARCH_STEPS):
         t = MARCH_DISTANCE * ((k + 1) / MARCH_STEPS) ** 2 + 0.05
@@ -63,10 +68,22 @@ def ssgi_half_res(gb, vc, prev_hdr, frame_index: int):
         # reversed-Z: a buffer nearer than the ray point may occlude it
         hit = on & (zbuf > z) & (zbuf < z * (1.0 + THICKNESS)) & ~found
         hit_col = torch.where(hit[..., None], prev_hdr[yi, xi], hit_col)
+        if debug_out is not None:
+            hit_t = torch.where(hit, t, hit_t)
         found = found | hit
     radiance = torch.where(found[..., None], hit_col, 0.0)
     # demodulated: the grid carries irradiance / pi (the cos / pi pdf cancels)
-    irr = torch.where(valid[..., None], radiance, 0.0).reshape(sh, sw, 3)
-    irr = joint_bilateral_upsample(irr, sub(gb.depth), sub(gb.normal), sub(gb.valid),
+    irr_img = torch.where(valid[..., None], radiance, 0.0).reshape(sh, sw, 3)
+    if debug_out is not None:
+        from hobbyrenderer_tpu_torch.ops.ibl import sample_irradiance
+        debug_out["irr_half"] = irr_img
+        debug_out["hit"] = found.reshape(sh, sw).to(torch.float32)
+        debug_out["ray_t"] = (hit_t / MARCH_DISTANCE).reshape(sh, sw)
+        debug_out["direct"] = hit_col.reshape(sh, sw, 3)
+        # the sky a missed march would read (that energy is the IBL
+        # ambient's): the SH irradiance along the march direction
+        debug_out["sky_eval"] = torch.where(valid[..., None], sample_irradiance(irr, d),
+                                            0.0).reshape(sh, sw, 3)
+    irr = joint_bilateral_upsample(irr_img, sub(gb.depth), sub(gb.normal), sub(gb.valid),
                                    gb.depth, gb.normal, 2)
     return torch.where(gb.valid[..., None], gb.albedo * irr, 0.0)

@@ -1,9 +1,9 @@
-"""Material texture sampling from the packed texel table (stochastic
-trilinear), uv LOD and normal mapping.
+"""Material texture sampling (stochastic trilinear) from the packed texel
+table or through the streaming residency tables, the streaming feedback
+histogram, uv LOD and normal mapping.
 
-Counterpart of hobbyrenderer_tpu/ops/texture.py (dense-table path; the
-streamed path is not ported yet). Texel rows are int64 tensors holding the
-packed uint32 words (scene/textures.py layout)."""
+Counterpart of hobbyrenderer_tpu/ops/texture.py. Texel rows are int64
+tensors holding the packed uint32 words (scene/textures.py layout)."""
 
 from __future__ import annotations
 
@@ -62,6 +62,56 @@ def _decode_rows(rows) -> TexSample:
                      normal_ts=torch.cat([nrm_xy, nz[..., None]], -1),
                      occlusion=u8(1, 2), roughness=u8(1, 3), metallic=u8(2, 0),
                      emissive=_srgb_to_linear(emis))
+
+
+def sample_material_streamed(stream, mat, uv, lod, rng_key3) -> TexSample:
+    """Stochastic-trilinear sample through the streaming tables
+    (scene/streaming.py StreamTables): the requested lod is clamped to the
+    material's finest fully-resident mip; tail mips (<= 32x32) read dense
+    rows at the pool head, streamed mips go through the page table. One
+    texel-row gather, as the dense path, plus three small-table gathers."""
+    from hobbyrenderer_tpu_torch.scene.streaming import PAGE_TEXELS, TAIL_MAX, TILE
+    MIPS = stream.vt_base.shape[1]
+    M = stream.mat_resident.shape[0]
+    mc = torch.clamp(mat, 0, M - 1)
+    u0 = uniform_from_bits(rng_key3[..., 0])
+    u1 = uniform_from_bits(rng_key3[..., 1])
+    u2 = uniform_from_bits(rng_key3[..., 2])
+    S = torch.clamp(stream.mat_tex_size[mc], min=1)
+    max_l = torch.round(torch.log2(S.to(torch.float32))).to(torch.int64)
+    l = torch.minimum(torch.clamp(torch.floor(lod + u0).to(torch.int64), min=0), max_l)
+    l = torch.maximum(l, stream.mat_resident[mc])            # residency clamp
+    l = torch.clamp(l, 0, MIPS - 1)
+    Sl = torch.clamp(S >> l, min=1)
+    Slf = Sl.to(torch.float32)
+    xi = torch.floor(uv[..., 0] * Slf - 0.5 + u1).to(torch.int64) % Sl
+    yi = torch.floor(uv[..., 1] * Slf - 0.5 + u2).to(torch.int64) % Sl
+    flat = mc * MIPS + l
+    tail_off = stream.tail_off.reshape(-1)
+    row_t = tail_off[flat] + yi * Sl + xi                    # tail: dense rows
+    tiles_x = torch.clamp(Sl // TILE, min=1)                 # streamed: tile -> page
+    vt = stream.vt_base.reshape(-1)[flat] + (yi // TILE) * tiles_x + (xi // TILE)
+    V = stream.page_table.shape[0]
+    page = stream.page_table[torch.clamp(vt, 0, V - 1)]
+    row_s = stream.pool_base + page * PAGE_TEXELS + (yi % TILE) * TILE + (xi % TILE)
+    # page < 0 cannot happen at mips >= mat_resident; guard with the 1x1 tail
+    idx = torch.where(Sl <= TAIL_MAX, row_t,
+                      torch.where(page >= 0, row_s, tail_off[mc * MIPS + MIPS - 1]))
+    rows = stream.tex_pool[torch.clamp(idx, 0, stream.tex_pool.shape[0] - 1)]
+    return _decode_rows(rows)
+
+
+def texture_feedback(mat, lod, n_mats: int, stride: int = 4):
+    """The per-frame sampler-feedback resolve: a strided (mat, mip) demand
+    histogram before the residency clamp. mat (H, W) int, lod (H, W) f32 ->
+    (n_mats, MAX_MIPS) int64 counts (an integer scatter-add: the same counts
+    on the card and the CPU, with no host sync)."""
+    from hobbyrenderer_tpu_torch.scene.textures import MAX_MIPS
+    m = torch.clamp(mat[::stride, ::stride], 0, n_mats - 1)
+    l = torch.clamp(torch.floor(lod[::stride, ::stride]).to(torch.int64), 0, MAX_MIPS - 1)
+    seg = (m * MAX_MIPS + l).reshape(-1)
+    hist = torch.zeros(n_mats * MAX_MIPS, dtype=torch.int64, device=seg.device)
+    return hist.index_add_(0, seg, torch.ones_like(seg)).reshape(n_mats, MAX_MIPS)
 
 
 def _ddx(img):

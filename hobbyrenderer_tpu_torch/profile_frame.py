@@ -7,6 +7,8 @@
         --indirect-mode combined --regir
     python -m hobbyrenderer_tpu_torch.profile_frame --direct-mode restir \
         --indirect-mode restir --envmap 2048 --env-lights 64 --animate [--render-scale 0.5]
+    python -m hobbyrenderer_tpu_torch.profile_frame --direct-mode restir \
+        --indirect-mode restir --tex-streaming --frames 24
 
 Renders ``--frames`` frames and prints, per pass: the stream time (CUDA
 events around each pass, median over the frames after the first) and the
@@ -19,7 +21,9 @@ wavefront compactions. ``--envmap`` takes an image path, or a width for
 the seeded sky of scene/workload.py (written to a temporary directory);
 ``--animate`` gives every 8th node of the scene a rise-and-turn animation,
 so every frame refits the ray-tracing scene (its device time is the
-"Frame/RTRefit" row).
+"Frame/RTRefit" row); ``--tex-streaming`` streams the textures through the
+default 64 MB pool (the batch applied at frame start is the
+"Frame/TexStreaming" row).
 Then the frame time (host clock with a synchronize, median after the
 first), the kernels per frame, and the device's busy share of the traced
 frames (kernel time / wall time). The first line is the card's name and
@@ -187,6 +191,7 @@ def main(argv=None):
     p.add_argument("--animate", action="store_true",
                    help="animate every 8th node: each frame refits the RT scene")
     p.add_argument("--render-scale", type=float, default=1.0)
+    p.add_argument("--tex-streaming", action="store_true")
     p.add_argument("--frames", type=int, default=8)
     p.add_argument("--cache-dir", default=".hr_cache")
     a = p.parse_args(argv)
@@ -214,9 +219,11 @@ def main(argv=None):
                         direct_mode=a.direct_mode, indirect_mode=a.indirect_mode,
                         regir=a.regir, regir_mode=a.regir_mode, envmap=envmap,
                         env_lights=a.env_lights, render_scale=a.render_scale,
-                        specular_indirect=a.specular_indirect, cache_dir=a.cache_dir),
+                        specular_indirect=a.specular_indirect, cache_dir=a.cache_dir,
+                        tex_streaming=a.tex_streaming),
                  scene=scene, device="cuda")
-    names = [] if pt else [ps.name for ps in r.graph.passes if ps.enabled] + ["Frame/RTRefit"]
+    names = [] if pt else [ps.name for ps in r.graph.passes if ps.enabled] + [
+        "Frame/RTRefit", "Frame/TexStreaming"]
     events = {} if pt else time_passes(r.graph)
     frame_ms = []
     for _ in range(a.frames - 3):
@@ -244,7 +251,7 @@ def main(argv=None):
                       "direct_mode": a.direct_mode, "indirect_mode": a.indirect_mode,
                       "specular_indirect": a.specular_indirect, "envmap": a.envmap,
                       "env_lights": a.env_lights, "animate": a.animate,
-                      "render_scale": a.render_scale,
+                      "render_scale": a.render_scale, "tex_streaming": a.tex_streaming,
                       "frame_ms": [round(x, 2) for x in frame_ms],
                       "median_ms_after_first": round(statistics.median(frame_ms[1:]), 2),
                       **busy_share(kern, 3, wall_ms)}))

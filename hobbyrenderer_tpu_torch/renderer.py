@@ -12,9 +12,12 @@ and the reference path tracer (``mode="path_tracer"``, progressive,
 ``pt_spp`` samples a frame); environment maps (``envmap``, the prebaked
 ``irradiance`` / ``radiance`` maps, ``brdflut``, ``env_lights``), animated
 scenes (refitted on the device each frame an instance moved), the per-pass
-execution (``execute_per_pass``), live tuning (``tune_file``) and .hdr
-screenshots. Texture streaming and the debug views raise
-NotImplementedError naming the ROADMAP Queue 1 item that brings them."""
+execution (``execute_per_pass``), live tuning (``tune_file``), .hdr
+screenshots, texture streaming (``tex_streaming``: a TextureStreamer's
+worker thread schedules tile uploads within ``tex_budget_mb``, the frame
+loop applies them and fetches the demand feedback every 8th frame) and the
+debug views and overlays (``debug_view``, ``csm_debug``, ``ddgi_debug``,
+``tex_debug``). Multi-GPU rendering is ROADMAP Queue 1 item 10."""
 
 from __future__ import annotations
 
@@ -43,17 +46,13 @@ from hobbyrenderer_tpu_torch.ops.lights import refresh_pool_emissive
 from hobbyrenderer_tpu_torch.scene.gpu import (build_scene_gpu, update_instance_transforms,
                                                update_material_constants)
 
-_DEBUG = "ROADMAP Queue 1 item 8 (debug views)"
-_STREAMING = "ROADMAP Queue 1 item 9 (texture streaming)"
 INDIRECT_MODES = ("none", "sharc", "ssgi", "restir", "ddgi", "combined")
 
 
 def check_config(cfg: Config):
-    """Raise NotImplementedError for any option this port does not run yet."""
-    def need(ok, what, slice_):
-        if not ok:
-            raise NotImplementedError(f"{what} is not ported yet: {slice_}")
-
+    """Raise ValueError for an unknown mode, direct or indirect mode, or
+    denoiser (the debug view's name is checked with the graph, as in the
+    JAX package)."""
     if cfg.mode not in RenderingMode.ALL:
         raise ValueError(f"unknown mode '{cfg.mode}' ({' | '.join(RenderingMode.ALL)})")
     if cfg.mode != RenderingMode.PATH_TRACER:
@@ -65,9 +64,6 @@ def check_config(cfg: Config):
                              f"({' | '.join(INDIRECT_MODES)})")
         if (cfg.direct_mode or "simple") == "restir" and cfg.denoiser not in ("relax", "reblur"):
             raise ValueError(f"unknown denoiser '{cfg.denoiser}' (relax | reblur)")
-    need(not cfg.tex_streaming, "texture streaming", _STREAMING)
-    need(not (cfg.debug_view or cfg.csm_debug or cfg.ddgi_debug or cfg.tex_debug),
-         "debug views", _DEBUG)
 
 
 def device_view_constants(vc, device) -> dict:
@@ -121,11 +117,20 @@ class Renderer:
             else:
                 from hobbyrenderer_tpu_torch.scene.loader import load_gltf_scene
                 self.scene = load_gltf_scene(cfg.scene, cache_dir=cfg.cache_dir)
+        self.streamer = None
+        if cfg.tex_streaming:
+            # the pool holds tex_budget_mb of 16-byte texels (at least 16 pages)
+            from hobbyrenderer_tpu_torch.scene.streaming import PAGE_TEXELS, TextureStreamer
+            pages = max((cfg.tex_budget_mb * (1 << 20)) // (PAGE_TEXELS * 16), 16)
+            self.streamer = TextureStreamer(self.scene, budget_pages=pages)
+        # device-to-host copies of the streaming feedback (one every 8th frame)
+        self.feedback_syncs = 0
         env, env_sh, brdf_lut = self._load_environment()
         with PROFILER.scope("Init/Upload"):
             self.gpu = build_scene_gpu(self.scene, self.device,
                                        max_lights=max(64, len(self.scene.lights) + 8),
-                                       env_map=env, env_sh=env_sh, brdf_lut=brdf_lut)
+                                       env_map=env, env_sh=env_sh, brdf_lut=brdf_lut,
+                                       streamer=self.streamer)
         cam_desc = self.scene.cameras[0] if self.scene.cameras else None
         self.camera = Camera(cam_desc, cfg.render_width, cfg.render_height)
         if cam_desc is None or np.allclose(self.camera.position, [0, 1, 5]):
@@ -232,7 +237,9 @@ class Renderer:
                                        regir=cfg.regir, regir_mode=cfg.regir_mode,
                                        env_as_lights=self._env_as_lights,
                                        out_width=cfg.width, out_height=cfg.height,
-                                       execute_per_pass=cfg.execute_per_pass)
+                                       execute_per_pass=cfg.execute_per_pass,
+                                       tex_debug=cfg.tex_debug, csm_debug=cfg.csm_debug,
+                                       ddgi_debug=cfg.ddgi_debug, debug_view=cfg.debug_view)
         if cfg.keep_hdr:                # the linear frame, for .hdr screenshots
             self._model.keep = ("hdr",)
 
@@ -315,12 +322,26 @@ class Renderer:
         if dirty_rt and self._model.rt is not None:
             with PROFILER.scope("Frame/RTRefit"), torch.profiler.record_function("Frame/RTRefit"):
                 self._model.rt = refit_scene_rt(self._model.rt, self.gpu.inst_transform)
+        if self.streamer is not None:
+            # a finished tile-upload batch, applied at frame start
+            with PROFILER.scope("Frame/TexStreaming"), \
+                    torch.profiler.record_function("Frame/TexStreaming"):
+                self.gpu = dataclasses.replace(
+                    self.gpu, tex_stream=self.streamer.apply_updates(self.gpu.tex_stream),
+                    meta=self.gpu.meta)
         with PROFILER.scope("Frame/ViewConstants"):
             vc = self.view_constants()
         with PROFILER.scope("Frame/Render"):
             # the host matrix: the path tracer's camera-move reset compares it
             view_proj = self.camera.view_constants(self.frame_index)["view_proj_no_jitter"]
             ldr = self._model.render(self.gpu, vc, cfg.settings, dt, view_proj)
+        if self.streamer is not None and self.frame_index % 8 == 7:
+            # the feedback fetch, on this thread (the worker never touches a
+            # device tensor): one device-to-host copy every 8th frame
+            fb = self._model.last_stats.get("tex_feedback")
+            if fb is not None:
+                self.streamer.publish_feedback(fb.cpu().numpy())
+                self.feedback_syncs += 1
         self.camera.end_frame()
         self.camera_state.publish(self.camera, self._scene_key)
         self.frame_index += 1
@@ -365,12 +386,22 @@ class Renderer:
         write_png(path, self.last_frame.cpu().numpy())
 
     def shutdown(self):
+        """Flush the camera state and stop the streamer's worker."""
         self.camera_state.stop(flush=True)
+        if self.streamer is not None:
+            self.streamer.stop()
 
     def stats(self) -> dict:
         out = {k: (v.item() if isinstance(v, torch.Tensor) else v)
-               for k, v in self._model.last_stats.items()}
+               for k, v in self._model.last_stats.items() if k != "tex_feedback"}
         out["pool_cdf_host_syncs"] = self.pool_cdf_syncs
+        if self.streamer is not None:
+            st = self.streamer
+            out["tex_feedback_host_syncs"] = self.feedback_syncs
+            out["stream_free_pages"] = len(st.free_pages)
+            out["stream_budget_pages"] = st.budget_pages
+            out["stream_resident_mips"] = st.resident.tolist()
+            out["stream_tiles_uploaded"] = st.tiles_uploaded
         return out
 
     def describe_graph(self) -> str:

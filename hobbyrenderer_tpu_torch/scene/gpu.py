@@ -107,6 +107,7 @@ class SceneGPU:
     env_map: Any = None       # (He, We, 3) f32 equirect radiance (ops/envmap.py)
     env_sh: Any = None        # (9, 3) f32 irradiance SH of the env map or --irradiance
     brdf_lut: Any = None      # (N, N, 2) f32 authored split-sum LUT (--brdflut)
+    tex_stream: Any = None    # scene/streaming.py StreamTables under texture streaming
 
     def __post_init__(self):
         if not self.meta:
@@ -142,7 +143,7 @@ class SceneGPU:
 ENV_FIELDS = ("env_map", "env_sh", "brdf_lut")
 # the JAX SceneGPU leaves every scene has, in dataclass order
 FIELDS = tuple(f.name for f in dataclasses.fields(SceneGPU)
-               if f.name != "meta" and f.name not in ENV_FIELDS)
+               if f.name not in ("meta", "tex_stream") and f.name not in ENV_FIELDS)
 
 
 def _host_meta(g: SceneGPU) -> Dict[str, Any]:
@@ -194,18 +195,30 @@ def _to_tensor(v, device) -> torch.Tensor:
     return torch.as_tensor(a.astype(np.float32), device=device)
 
 
+def stream_tables_from_numpy(t, device):
+    """A JAX StreamTables (its arrays as numpy or jax arrays, or a dict of
+    them) -> the port's StreamTables on ``device``: int64 tensors, the
+    packed uint32 texel words widened as the dense table's are."""
+    from hobbyrenderer_tpu_torch.scene.streaming import StreamTables
+    get = t.get if isinstance(t, dict) else (lambda k: getattr(t, k))
+    return StreamTables(**{k: (int(get(k)) if k == "pool_base"
+                               else torch.as_tensor(np.asarray(get(k)).astype(np.int64),
+                                                    device=device))
+                           for k in StreamTables._fields})
+
+
 def scene_gpu_from_numpy(d: Dict[str, np.ndarray], device) -> SceneGPU:
-    """The JAX SceneGPU's leaves as numpy (``{name: np.asarray(leaf)}``) ->
-    the port's SceneGPU on ``device``."""
+    """The JAX SceneGPU's leaves as numpy (``{name: np.asarray(leaf)}``, the
+    streaming tables as they are) -> the port's SceneGPU on ``device``."""
     missing = [k for k in FIELDS if k not in d]
     if missing:
         raise KeyError(f"missing SceneGPU leaves: {missing}")
-    if d.get("tex_stream") is not None:
-        raise NotImplementedError("SceneGPU.tex_stream is not ported yet (ROADMAP Queue 1 "
-                                  "item 9, texture streaming)")
+    stream = d.get("tex_stream")
     return SceneGPU(**{k: _to_tensor(d[k], device) for k in FIELDS},
                     **{k: _to_tensor(d[k], device) for k in ENV_FIELDS
-                       if d.get(k) is not None})
+                       if d.get(k) is not None},
+                    tex_stream=None if stream is None else stream_tables_from_numpy(stream,
+                                                                                    device))
 
 
 def _texture_arrays(scene: Scene) -> Dict[str, np.ndarray]:
@@ -215,9 +228,11 @@ def _texture_arrays(scene: Scene) -> Dict[str, np.ndarray]:
                 mat_mip_off=t["mat_mip_off"])
 
 
-def scene_arrays(scene: Scene, max_lights: int = 64) -> Dict[str, np.ndarray]:
+def scene_arrays(scene: Scene, max_lights: int = 64, streamer=None) -> Dict[str, np.ndarray]:
     """Flatten the host Scene into numpy tables (same code as the JAX
-    build_scene_gpu, minus streaming and environment maps)."""
+    build_scene_gpu, minus environment maps). Under texture streaming
+    (``streamer``, a scene/streaming.py TextureStreamer) there is no dense
+    texel table: the material sizes come from the streamer's layout."""
     vtx_offsets = []
     pos_l, nrm_l, uv_l, tan_l = [], [], [], []
     off = 0
@@ -341,7 +356,13 @@ def scene_arrays(scene: Scene, max_lights: int = 64) -> Dict[str, np.ndarray]:
     pair_meshlet = cat(pm_l, np.int32)
     pair_lod = cat(pl_l, np.int32) if pl_l else np.full((1,), -1, np.int32)
 
-    tex_arrays = _texture_arrays(scene)
+    if streamer is not None:
+        tex_arrays = dict(tex_table=np.zeros((1, 4), np.uint32),
+                          mat_tex_size=streamer.mat_size.copy(),
+                          mat_mip_off=np.zeros((len(scene.materials) or 1,
+                                                streamer.tail_off.shape[1]), np.int32))
+    else:
+        tex_arrays = _texture_arrays(scene)
     Mt = max(len(scene.materials), 1)
     mat_f = np.zeros((Mt, 20), np.float32)
     mat_i = np.full((Mt, 8), -1, np.int32)
@@ -411,11 +432,13 @@ def scene_arrays(scene: Scene, max_lights: int = 64) -> Dict[str, np.ndarray]:
 
 
 def build_scene_gpu(scene: Scene, device, max_lights: int = 64, env_map=None, env_sh=None,
-                    brdf_lut=None) -> SceneGPU:
+                    brdf_lut=None, streamer=None) -> SceneGPU:
     """Flatten the host Scene and upload it to ``device``. ``env_map``
     (He, We, 3) f32 also sets ``env_sh`` to its SH projection; an explicit
     ``env_sh`` (a prebaked --irradiance map's) overrides it; ``brdf_lut``
-    (N, N, 2) replaces the analytic split-sum fit."""
+    (N, N, 2) replaces the analytic split-sum fit. With ``streamer`` (a
+    scene/streaming.py TextureStreamer) the texels live in its paged pool
+    (``tex_stream``), the tail resident at first."""
     env = {}
     if env_map is not None:
         from hobbyrenderer_tpu_torch.ops.envmap import project_sh9
@@ -426,13 +449,17 @@ def build_scene_gpu(scene: Scene, device, max_lights: int = 64, env_map=None, en
     if brdf_lut is not None:
         env["brdf_lut"] = brdf_lut
     return SceneGPU(**{k: _to_tensor(v, device)
-                       for k, v in scene_arrays(scene, max_lights).items()},
-                    **{k: _to_tensor(v, device) for k, v in env.items()})
+                       for k, v in scene_arrays(scene, max_lights, streamer).items()},
+                    **{k: _to_tensor(v, device) for k, v in env.items()},
+                    tex_stream=None if streamer is None else streamer.initial_tables(device))
 
 
 def _upload(a: np.ndarray, device) -> torch.Tensor:
     """A per-frame host array on ``device``: to a GPU through pinned memory
-    without waiting (a pageable copy would wait for the device's queue)."""
+    without waiting (a pageable copy would wait for the device's queue).
+    The pinned block outlives the returned tensor's source safely: PyTorch's
+    pinned-memory allocator records the copy on the stream and hands the
+    block out again only after the copy has finished."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if torch.device(device).type != "cuda":
         return t.to(device)

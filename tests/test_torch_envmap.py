@@ -195,8 +195,6 @@ NOT_COMPARED = {"raster_aux", "gi_traced", "ddgi_traced", "spec_past_cap"}
 # ResolveGBuffer no slots (they serve the JAX side table)
 JAX_ONLY_READS = {("DeferredLighting", "sun_shadow"), ("SSGI", "sky_irradiance"),
                   ("ResolveGBuffer", "visible_slots")}
-# disabled passes of ROADMAP Queue 1 items 8 and 9 (debug views, streaming)
-JAX_ONLY_PASSES = ("DDGIDebug", "CSMDebug", "TexResidencyDebug")
 
 
 def test_export_graph_matches_jax(tmp_path):
@@ -209,7 +207,7 @@ def test_export_graph_matches_jax(tmp_path):
     tr.render_frame()
     got = tr.export_graph()
     jr = JaxRenderer(JaxConfig(**kw))
-    want = [p for p in jr.export_graph()["passes"] if p["name"] not in JAX_ONLY_PASSES]
+    want = jr.export_graph()["passes"]
     assert [(p["name"], p["enabled"], p["persistent"]) for p in got["passes"]] == \
         [(p["name"], p["enabled"], p["persistent"]) for p in want]
 

@@ -154,9 +154,21 @@ def test_cpu_frame_counts_no_kernel_launch(tmp_path):
     dict(ddgi_debug=True), dict(tex_debug=True), dict(mode="normal_basic", csm_debug=True),
     dict(render_scale=0.5, tex_streaming=True), dict(debug_view="ssgi_radiance")])
 def test_unported_options_raise(tmp_path, opt):
+    """The options of ROADMAP Queue 1 items 8 (debug views) and 9 (texture
+    streaming) raised NotImplementedError until they were ported; now each
+    renders a CPU frame, and an unknown debug view ("ssgi_radiance" is none
+    of ops/debugview.py's) raises the JAX graph's ValueError."""
     cfg = Config(scene="cube", width=64, height=48, cache_dir=str(tmp_path), **opt)
-    with pytest.raises(NotImplementedError):
-        TorchRenderer(cfg, device="cpu")
+    if opt.get("debug_view") == "ssgi_radiance":
+        with pytest.raises(ValueError, match="unknown --debug-view"):
+            TorchRenderer(cfg, device="cpu")
+        return
+    r = TorchRenderer(cfg, device="cpu")
+    ldr = r.render_frame()
+    stats = r.stats()
+    r.shutdown()
+    assert tuple(ldr.shape) == (48, 64, 3) and ldr.dtype == torch.uint8
+    assert ("stream_budget_pages" in stats) == bool(opt.get("tex_streaming"))
 
 
 def test_cuda_without_gpu_raises(tmp_path):

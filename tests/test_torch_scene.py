@@ -119,8 +119,18 @@ def test_scene_gpu_from_numpy_roundtrip(name):
         assert torch.equal(getattr(got, k), getattr(ref, k)), k
     assert got.meta["light_count"] == int(leaves["light_count"])
     assert got.lod0_pair_capacity == int(np.sum(leaves["pair_lod"] == 0))
-    with pytest.raises(NotImplementedError):
-        tgpu.scene_gpu_from_numpy(dict(leaves, tex_stream=np.zeros(4, np.float32)), "cpu")
+    # a carried streaming state (the JAX streamer's tables at start) gives
+    # the port streamer's tables
+    from hobbyrenderer_tpu.scene.streaming import TextureStreamer as JaxStreamer
+    from hobbyrenderer_tpu_torch.scene.streaming import StreamTables, TextureStreamer
+    js, ts = JaxStreamer(SCENES[name](), sync_mode=True), TextureStreamer(TSCENES[name](),
+                                                                          sync_mode=True)
+    carried = tgpu.scene_gpu_from_numpy(dict(leaves, tex_stream=js.initial_tables()),
+                                        "cpu").tex_stream
+    own = ts.initial_tables("cpu")
+    for k in StreamTables._fields:
+        a, b = getattr(carried, k), getattr(own, k)
+        assert (a == b) if k == "pool_base" else torch.equal(a, b), k
     env = tgpu.scene_gpu_from_numpy(dict(leaves, env_sh=np.ones((9, 3), np.float32)), "cpu")
     assert torch.equal(env.env_sh, torch.ones(9, 3)) and env.env_map is None
 
