@@ -57,7 +57,31 @@ csm_debug + ddgi_debug + csm_cascade_splits; sharc_heatmap; the streamed
 flagship with tex_debug), and CUDA against CPU at 256x192 (phase 29: the
 streamed flagship in a 2 MB pool with lockstep sync-mode streamers, the
 streaming tables equal after every apply; every view of ALL_VIEWS on one
-frame's DebugView inputs; the streamed path tracer).
+frame's DebugView inputs; the streamed path tracer). Last, the multi-GPU
+layer (parallel/): the machine has one card, so NCCL runs one rank and 2
+and 4 ranks are gloo ranks sharing cuda:0 (their times measure contention,
+not scaling), started by parallel/launch.py::run_ranks. Phase 30: on each
+world size, extend_rows (halos 1, 8, 32), all_gather_rows, psum_int and
+sum_ordered on the card equal to the same calls on CPU tensors of the same
+ranks, each one's ms, and which collectives gloo takes on CUDA tensors.
+Phase 31: bench.py's sharded flagship (FlagshipShardedRenderer on stress,
+1920 wide, the height rounded up to ranks x 32: 1088, 1088, 1152), 8
+frames on each rank (frame ms, collectives and their ms timed alone, host
+syncs by stage, K1-K4 launches a frame); rank 1 holds one frame's K1 (ty0
+= 17 at n = 2), K2 (y0 = 544), K3 and K4 calls bit for bit with three
+launches equal; its Raster depth and visid equal rows 544-1087 of the one
+rank frame's; with the straggler caps lifted the 2-rank frames against
+the one-rank frames, printed as they are (the JAX package's sharded
+semantics: zero halo rows past the frame, a band-limited bloom pyramid),
+and, with those two reference deltas also lifted, >= 99% within 2/255;
+one DeferredShardedRenderer
+(with_csm) frame holds K5's atlas call. Phase 32: the flagship's ssgi,
+sharc and ddgi modes on 2 ranks (finite, the SHARC caches equal), the
+sample-parallel path tracer at 960x540 on 2 ranks equal bit for bit to
+trace_paths(spp=2) in this process, the streamed feedback summed over 2
+ranks equal to the whole frame's, and 2 CUDA ranks against 2 CPU ranks at
+256x192 (>= 99% within 2/255). Ranks print nothing: they return their
+lines to this process.
 Any failed check raises: the script then exits nonzero without its final
 line.
 
@@ -93,6 +117,7 @@ one line per phase, the kernels JSON line, and last
 Exits nonzero when no GPU is visible, and when run outside the repository.
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -1396,13 +1421,15 @@ def _sync_counter(r):
     return by_pass, run
 
 
-def hold_captured(cap, bench_raster, bench_k2k4, card, tag):
+def hold_captured(cap, bench_raster, bench_k2k4, card, tag, emit=log):
     """A frame's captured K1 calls, K2 call, K3 walks and K4 calls, each
     held against its plain version as phases 2, 6, 7 and 3 hold them:
     K1 depth and visid torch.equal (attributes within 1e-4), K2 all five
     outputs torch.equal, K3 every output torch.equal, K4 within phase 3's
     allowance of the plain version and equal to its replayed walk; three
-    launches equal for each. Returns a summary for the kernels line."""
+    launches equal for each. Its lines go to ``emit``. Returns a summary
+    for the kernels line."""
+    log = emit
     from hobbyrenderer_tpu_torch.ops import beam as beamops
     out = {"k1": [], "k3": [], "k4": []}
     for i, (records, work_tile, work_slot, kw) in enumerate(cap["k1"]):
@@ -1790,6 +1817,553 @@ def phase_streaming_cuda_vs_cpu(Renderer, Config, card, W=256, H=192, frames=8):
     assert within >= 0.99, within
 
 
+# ---- phases 30-32: the multi-GPU layer (parallel/) --------------------------
+# The machine has one card. NCCL takes one GPU a rank, so it runs at world
+# size 1; 2 and 4 ranks are gloo ranks that share cuda:0, and their times
+# measure the ranks' contention for the card, not scaling.
+
+SHARD_CONFIGS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))   # phase 31: (ranks, backend)
+SHARD_FRAMES = 8
+SHARD_HOLD_FRAME = 2        # the frame whose K1-K4 calls rank 1 holds (GI traced)
+SHARD_SYNC_FRAME = 3        # the frame whose host syncs are counted by stage
+SHARD_LIFTED_FRAMES = 3     # frames with the straggler caps lifted (n = 2 against n = 1)
+SHARD_INDIRECT_FRAMES = 3   # frames of each of the flagship's other indirect modes (n = 2)
+HALOS = (1, 8, 32)
+
+
+def kernel_counters():
+    """Each kernel's launch count: {name: (module, attribute)}."""
+    from hobbyrenderer_tpu_torch.ops import beam as beamops
+    from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
+    from hobbyrenderer_tpu_torch.ops import raster_kernel as rk
+    from hobbyrenderer_tpu_torch.ops import restir_kernel as rko
+    from hobbyrenderer_tpu_torch.ops import trace_kernel as tk
+    from hobbyrenderer_tpu_torch.ops import wkernels as wk
+    return {"K1": (rk, "launches"), "K2": (rko, "launches"), "K3": (b16ops, "launches"),
+            "K4": (beamops, "launches"), "K5": (rk, "tiles_launches"), "K6": (tk, "launches"),
+            "K7": (wk, "leaf_launches"), "K8": (wk, "int_launches"), "K9": (wk, "hc_launches")}
+
+
+def _read_counts(counters):
+    return {k: getattr(m, a) for k, (m, a) in counters.items()}
+
+
+def collective_checks(mesh):
+    """Phase 30 on one rank: extend_rows (halos 1, 8, 32), all_gather_rows,
+    psum_int (int and float32 counts) and sum_ordered on the rank's device,
+    each held against the same call on CPU tensors of the same ranks (a
+    gloo group beside the mesh's), and each one's ms on the card (20 calls
+    back to back, synchronised). Under gloo also which collectives it takes
+    on CUDA tensors."""
+    import torch.distributed as dist
+    from hobbyrenderer_tpu_torch.ops import shard_utils as shu
+    from hobbyrenderer_tpu_torch.parallel.mesh import Mesh
+    cpu = Mesh(mesh.rank, mesh.n, "cpu", "gloo", group=dist.new_group(backend="gloo"))
+    h = 8
+    rng = np.random.default_rng(30)
+    full = rng.random((mesh.n * h, 1920, 3), dtype=np.float32)
+    counts_ = rng.integers(0, 1 << 20, 256) * (mesh.rank + 1)
+    got, fns = [], []
+    for m in (mesh, cpu):
+        x = torch.as_tensor(full[mesh.rank * h:(mesh.rank + 1) * h]).to(m.device)
+        c = torch.as_tensor(counts_).to(m.device)
+        sh = shu.make_row_shard(m, h)
+        calls = {f"extend_rows halo {k}": (lambda k=k: shu.extend_rows(x, k, sh)) for k in HALOS}
+        calls.update({"all_gather_rows": lambda: m.all_gather_rows(x),
+                      "psum_int": lambda: m.psum_int(c),
+                      "psum_int f32": lambda: m.psum_int(c.float()),
+                      "sum_ordered": lambda: m.sum_ordered(x)})
+        got.append({k: f().cpu() for k, f in calls.items()})
+        fns.append(calls)
+    equal = {k: torch.equal(got[0][k], got[1][k]) for k in got[1]}
+    ms = {}
+    for k, f in fns[0].items():
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            f()
+        torch.cuda.synchronize()
+        ms[k] = (time.perf_counter() - t0) / 20 * 1e3
+    takes = None
+    if mesh.backend == "gloo":
+        y = torch.ones((4, 3), device=mesh.device)
+        probes = {"all_gather (list)": lambda: dist.all_gather([torch.empty_like(y)] * mesh.n, y),
+                  "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                      torch.empty((4 * mesh.n, 3), device=mesh.device), y),
+                  "all_reduce": lambda: dist.all_reduce(y.clone()),
+                  "broadcast": lambda: dist.broadcast(y.clone(), 0)}
+        takes = {}
+        for k, f in probes.items():
+            try:
+                f()
+                takes[k] = "takes"
+            except RuntimeError as e:
+                takes[k] = f"refuses ({str(e)[:80]})"
+    return dict(equal=equal, ms=ms, gloo_cuda=takes, stats=mesh.stats.as_dict())
+
+
+@contextlib.contextmanager
+def reference_deltas_lifted(fill=True, bloom=True):
+    """Phase 31's comparison of the n-rank frame with the one-rank frame,
+    with the two sharded-frame semantics of the JAX package that the port
+    reproduces lifted, as the straggler caps are: with ``fill``
+    extend_rows replicates the edge row past the frame's top and bottom
+    (where the reference leaves ppermute's zeros, which the A-trous,
+    spatial-reuse and TAA taps read), with ``bloom`` the banded bloom is
+    bloom() on the gathered frame (where the reference's pyramid stops at
+    the first odd band height). With both, what remains are the seams: the
+    halos between bands, the per-band K4 ray tiles, the band raster and the
+    global RNG keys. In this process only."""
+    from hobbyrenderer_tpu_torch.ops import post, restir, taa, upsample, warp
+    from hobbyrenderer_tpu_torch.ops import shard_utils as shu
+    ext_orig, bloom_orig = shu.extend_rows, post.bloom_sharded
+    users = (post, restir, taa, upsample, warp, shu)
+
+    def extend_rows(x, halo, shard=None):
+        ext = ext_orig(x, halo, shard)
+        if shard is None or shard.n == 1 or halo == 0:
+            return ext
+        if shard.mesh.rank == 0:
+            ext = torch.cat([x[:1].expand_as(ext[:halo]), ext[halo:]], 0)
+        if shard.mesh.rank == shard.n - 1:
+            ext = torch.cat([ext[:-halo], x[-1:].expand_as(ext[-halo:])], 0)
+        return ext
+
+    def bloom_sharded(hdr, settings, shard, full_h):
+        y0 = shard.y0
+        return post.bloom(shard.mesh.all_gather_rows(hdr), settings)[y0:y0 + hdr.shape[0]]
+    for m in users if fill else ():
+        m.extend_rows = extend_rows
+    if bloom:
+        post.bloom_sharded = bloom_sharded
+    try:
+        yield
+    finally:
+        for m in users:
+            m.extend_rows = ext_orig
+        post.bloom_sharded = bloom_orig
+
+
+def sharded_rank(mesh, job):
+    """Phases 30 and 31 on one rank: the collectives, then the sharded
+    flagship (bench.py's configuration: stress, 1920 wide, traced specular,
+    transparency): ``SHARD_FRAMES`` frames at the default caps, each
+    frame's ms, K1-K4 launches, collectives and host syncs by stage (a
+    gloo collective of CUDA tensors is one more host sync each), one more
+    frame with the collectives timed alone; rank 1 holds frame
+    SHARD_HOLD_FRAME's K1, K2, K3 and K4 calls against their plain versions
+    and times its Raster call (K1 with the band's ty0); every rank keeps
+    frame 1's Raster call's depth and visid. Then SHARD_LIFTED_FRAMES frames
+    with the straggler caps lifted (their LDR frames), at n = 2 also with
+    the reference's sharded-frame deltas lifted, both and each alone
+    (reference_deltas_lifted);
+    with ``csm`` one
+    DeferredShardedRenderer(with_csm=True) frame, K5's atlas call held.
+    Returns the numbers and the lines to print (a rank prints nothing)."""
+    import warnings
+    from hobbyrenderer_tpu_torch import bench_k2k4, bench_raster
+    from hobbyrenderer_tpu_torch import bench_parallel as bp
+    from hobbyrenderer_tpu_torch.ops import beam as beamops
+    from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
+    from hobbyrenderer_tpu_torch.ops import raster as rasterops
+    from hobbyrenderer_tpu_torch.ops import raster_kernel as rk
+    from hobbyrenderer_tpu_torch.ops import restir_kernel as rko
+    from hobbyrenderer_tpu_torch.parallel import DeferredShardedRenderer
+    lines = []
+    out = {"lines": lines, "collectives": collective_checks(mesh)}
+    W, H = job["width"], job["height"]
+    t0 = time.perf_counter()
+    fjob = dict(job, kind="flagship")
+    r = bp.make_renderer(fjob, mesh.device)
+    fr = bp.make_sharded(fjob, r, mesh)
+    out["setup_s"] = time.perf_counter() - t0
+    settings = r.config.settings
+    counters = kernel_counters()
+
+    cap = {"k1": [], "k3": [], "k4": []}
+    hold = [False]
+    first_raster = {}
+    k1_orig, k2_orig = rk.raster_resolve_tiles, rko.restir_candidates
+    k3_orig, k4_orig = b16ops.bvh16_walk, beamops.beam_any_hit_tiles
+    ras_orig = rasterops.rasterize
+
+    def k1_spy(records, work_tile, work_slot, **kw):
+        if hold[0]:
+            cap["k1"].append((records, work_tile, work_slot, kw))
+        return k1_orig(records, work_tile, work_slot, **kw)
+
+    def k2_spy(*a, **kw):
+        if hold[0]:
+            cap.setdefault("k2", (a, kw))
+        return k2_orig(*a, **kw)
+
+    def k3_spy(table, o, d, t_max, any_hit, max_steps, t_min=1e-4):
+        if hold[0]:
+            cap["k3"].append((table, o, d, t_max, any_hit, max_steps, t_min))
+        return k3_orig(table, o, d, t_max, any_hit, max_steps, t_min)
+
+    def k4_spy(btable, rays):
+        if hold[0]:
+            cap["k4"].append((btable, rays.clone()))
+        return k4_orig(btable, rays)
+
+    def ras_spy(*a, **kw):
+        ro, attr = ras_orig(*a, **kw)
+        if not first_raster:
+            first_raster.update(depth=ro.depth.cpu().numpy(), visid=ro.visid.cpu().numpy())
+        return ro, attr
+
+    stage = ["outside"]
+    syncs = {}
+
+    @contextlib.contextmanager
+    def named(name):
+        stage[0] = name
+        try:
+            yield
+        finally:
+            stage[0] = "outside"
+
+    def on_warning(message, *a, **kw):
+        if "synchroniz" in str(message):
+            syncs[stage[0]] = syncs.get(stage[0], 0) + 1
+
+    fr.stage_hook = named
+    if mesh.rank == 1:
+        rk.raster_resolve_tiles, rko.restir_candidates = k1_spy, k2_spy
+        b16ops.bvh16_walk, beamops.beam_any_hit_tiles = k3_spy, k4_spy
+    rasterops.rasterize = ras_spy
+    frame_ms, per_frame, coll, host_syncs = [], [], [], None
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = on_warning
+            for i in range(SHARD_FRAMES + 1):
+                timed = i == SHARD_FRAMES
+                hold[0] = i == SHARD_HOLD_FRAME
+                vc, vp = bp.view_constants(r, i)
+                for m_, a_ in counters.values():
+                    setattr(m_, a_, 0)
+                mesh.stats.reset()
+                mesh.timed = timed
+                n0 = sum(syncs.values())
+                # the host syncs counted on one frame (each also prints a line)
+                torch.cuda.set_sync_debug_mode("warn" if i == SHARD_SYNC_FRAME else "default")
+                f0 = time.perf_counter()
+                ldr = fr.render(r.gpu, vc, settings, 1 / 60, vp)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - f0) * 1e3
+                torch.cuda.set_sync_debug_mode("default")
+                mesh.timed = False
+                if timed:
+                    out["collective_ms_timed"] = mesh.stats.ms
+                    continue
+                frame_ms.append(ms)
+                per_frame.append(_read_counts(counters))
+                coll.append(mesh.stats.as_dict())
+                if i == SHARD_SYNC_FRAME:
+                    host_syncs = sum(syncs.values()) - n0 + mesh.stats.host_syncs
+                rasterops.rasterize = ras_orig
+    finally:
+        rk.raster_resolve_tiles, rko.restir_candidates = k1_orig, k2_orig
+        b16ops.bvh16_walk, beamops.beam_any_hit_tiles = k3_orig, k4_orig
+        rasterops.rasterize = ras_orig
+    out.update(frame_ms=frame_ms, per_frame=per_frame, coll=coll, host_syncs=host_syncs,
+               syncs_by_stage=dict(syncs), first_raster=first_raster,
+               ldr_shape=tuple(ldr.shape), ldr_dtype=str(ldr.dtype))
+    card = job["card"]
+    if mesh.rank == 1:
+        tag = f"phase31 n={mesh.n} rank 1 frame {SHARD_HOLD_FRAME + 1}"
+        out["held"] = hold_captured(cap, bench_raster, bench_k2k4, card, tag, emit=lines.append)
+        x = raster_check(bench_raster, True, *cap["k1"][0])
+        out["k1_band"] = {k: x[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "items",
+                                            "exact", "repeat_equal", "attr_max_err")}
+        out["k1_band"]["ty0"] = cap["k1"][0][3]["ty0"]
+        out["k2_y0"] = cap["k2"][0][5]
+        lines.append(f"{tag} Raster call (K1, ty0 {out['k1_band']['ty0']}): {x['line']}")
+    del cap
+
+    # the caps lifted: every straggler traced, uncapped (n = 1 and 2 compared)
+    def lifted_frames():
+        fl = bp.make_sharded(dict(fjob, straggler_steps=None), r, mesh)
+        ldrs = []
+        for i in range(SHARD_LIFTED_FRAMES):
+            vc, vp = bp.view_constants(r, i)
+            ldr = fl.render(r.gpu, vc, settings, 1 / 60, vp)
+            if mesh.rank == 0:
+                ldrs.append(ldr.cpu().numpy())
+        return ldrs
+    out["lifted"] = lifted_frames() if mesh.n <= 2 else []
+    if mesh.n == 2:
+        for key, fill, bloom in (("lifted_seams", True, True), ("lifted_fill", True, False),
+                                 ("lifted_bloom", False, True)):
+            with reference_deltas_lifted(fill, bloom):
+                out[key] = lifted_frames()
+
+    # the flagship's other indirect modes (ROADMAP item 10's last bands)
+    for mode in job.get("indirects", ()):
+        fi = bp.make_sharded(dict(fjob, indirect=mode), r, mesh)
+        ms = []
+        for i in range(SHARD_INDIRECT_FRAMES):
+            vc, vp = bp.view_constants(r, i)
+            f0 = time.perf_counter()
+            ldr = fi.render(r.gpu, vc, settings, 1 / 60, vp)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - f0) * 1e3)
+        x = dict(ms=ms, finite=bool(torch.isfinite(fi.state["taa_history"]).all()),
+                 ldr_std=float(ldr.float().std()))
+        if mode == "sharc":
+            x["cache"] = fi.state["sharc_cache"]
+        out.setdefault("indirects", {})[mode] = x
+        del fi
+
+    if job.get("csm"):
+        ds = DeferredShardedRenderer(r.gpu, W, H, mesh=mesh, with_csm=True)
+        k5 = []
+        k5_orig = rk.raster_tiles
+
+        def k5_spy(records, work_tile, work_slot, **kw):
+            k5.append((records, work_tile, work_slot, kw))
+            return k5_orig(records, work_tile, work_slot, **kw)
+        for m_, a_ in counters.values():
+            setattr(m_, a_, 0)
+        rk.raster_tiles = k5_spy
+        try:
+            vc, vp = bp.view_constants(r, 0)
+            ldr = ds.render(r.gpu, vc, settings)
+            torch.cuda.synchronize()
+        finally:
+            rk.raster_tiles = k5_orig
+        out["csm_launches"] = _read_counts(counters)
+        out["csm_ldr_ok"] = tuple(ldr.shape) == (H, W, 3)
+        if mesh.rank == 0:
+            records, wt, ws, kw = k5[0]
+            kw = dict(kw)
+            x = raster_check(bench_raster, False, records, wt, ws, kw, kw.pop("depth_only"))
+            out["k5"] = {k: x[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "items",
+                                           "exact", "repeat_equal", "attr_max_err")}
+            out["k5"]["ty0"] = kw.get("ty0", 0)
+            lines.append(f"phase31 n={mesh.n} DeferredShardedRenderer(with_csm=True) K5 atlas "
+                         f"call: {x['line']}")
+    r.shutdown()
+    return out
+
+
+def phase_sharded_flagship(card, scene="stress", width=1920, height=1080):
+    """Phases 30 and 31 (sharded_rank) at n = 1 (NCCL), 2 and 4 (gloo ranks
+    sharing cuda:0): 1920 x 1088, 1088 and 1152 rows. Holds: the collectives
+    equal on the card and on CPU tensors; rank 1's K1-K4 calls (ty0 = 17 at
+    n = 2) bit-exact, three launches equal (inside the rank); rank 1's Raster
+    depth and visid at n = 2 equal to rows 544-1087 of the n = 1 frame's;
+    the n = 2 LDR frames with the caps lifted >= 99% within 2/255 of the
+    n = 1 frames; K1-K4 launched every frame on every rank; K5's atlas call
+    bit-exact."""
+    from hobbyrenderer_tpu_torch import bench_parallel as bp
+    from hobbyrenderer_tpu_torch.parallel.launch import run_ranks
+    res, size = {}, {}
+    for n, backend in SHARD_CONFIGS:
+        H = size[n] = bp.sharded_height(height, n)
+        job = dict(scene=scene, width=width, height=H, frames=SHARD_FRAMES, csm=n == 2,
+                   card=card, indirects=("ssgi", "sharc", "ddgi") if n == 2 else ())
+        t0 = time.perf_counter()
+        ranks = run_ranks(sharded_rank, n, backend=backend, devices=["cuda:0"] * n, args=(job,),
+                          deadline_s=900)
+        wall = time.perf_counter() - t0
+        res[n] = ranks
+        c0 = ranks[0]["collectives"]
+        log(f"phase30 n={n} {backend} on cuda:0 ({'one rank' if n == 1 else f'{n} ranks sharing '
+            'one card'}) on {card}: equal to the same calls on CPU tensors {c0['equal']}; ms a "
+            f"call on the card {json.dumps({k: round(v, 4) for k, v in c0['ms'].items()})}"
+            + (f"; gloo on CUDA tensors: {c0['gloo_cuda']}" if c0["gloo_cuda"] else ""))
+        for rank, x in enumerate(ranks):
+            for ln in x["lines"]:
+                log(ln)
+            med = statistics.median(x["frame_ms"][1:])
+            log(f"phase31 sharded flagship {scene} {width}x{H} n={n} {backend} rank {rank} "
+                f"({'one rank on' if n == 1 else f'{n} ranks sharing'} {card}): setup "
+                f"{x['setup_s']:.1f} s, frame ms {[round(v, 2) for v in x['frame_ms']]}, median "
+                f"frames 2-{SHARD_FRAMES} {med:.2f} ms; collectives a frame {x['coll'][-1]}, "
+                f"their ms (one frame timed alone) {x['collective_ms_timed']:.3f}; host syncs "
+                f"in frame {SHARD_SYNC_FRAME + 1} {x['host_syncs']} (by stage "
+                f"{x['syncs_by_stage']}, plus {x['coll'][-1]['host_syncs']} gloo collectives "
+                f"of CUDA tensors); K1-K4 launches "
+                f"a frame {[{k: c[k] for k in ('K1', 'K2', 'K3', 'K4')} for c in x['per_frame']]}"
+                f"; run wall {wall:.1f} s")
+            assert all(c0["equal"].values()) and all(x["collectives"]["equal"].values()), \
+                x["collectives"]["equal"]
+            assert x["ldr_shape"] == (H, width, 3) and x["ldr_dtype"] == "torch.uint8"
+            for i, c in enumerate(x["per_frame"]):
+                assert c["K1"] >= 2 and c["K2"] >= 1 and c["K3"] >= 2 and c["K4"] >= 2, \
+                    (n, rank, i, c)
+    r1, h = res[2][1], size[2] // 2
+    assert r1["k1_band"]["ty0"] == h // 32 and r1["k2_y0"] == h, (r1["k1_band"], r1["k2_y0"])
+    full = res[1][0]["first_raster"]
+    rows_eq = {k: bool(np.array_equal(r1["first_raster"][k], full[k][h:2 * h]))
+               for k in ("depth", "visid")}
+    log(f"phase31 rank 1 of 2 (ty0 {h // 32}, y0 {h}): its Raster call's depth and visid equal "
+        f"rows {h}-{2 * h - 1} of the one rank frame's: {rows_eq}")
+    assert all(rows_eq.values()), rows_eq
+    k5 = res[2][0]["k5"]
+    assert k5["exact"] and k5["repeat_equal"], k5
+    assert all(x["csm_launches"]["K5"] >= 1 and x["csm_ldr_ok"] for x in res[2]), \
+        [x["csm_launches"] for x in res[2]]
+    ind = {m: [x["indirects"][m] for x in res[2]] for m in ("ssgi", "sharc", "ddgi")}
+    caches_equal = all(np.array_equal(a, b) for a, b in zip(*[x["cache"] for x in ind["sharc"]]))
+    log(f"phase32 the flagship's other indirect modes, {width}x{size[2]}, 2 ranks sharing {card}, "
+        f"{SHARD_INDIRECT_FRAMES} frames each: frame ms per rank "
+        f"{ {m: [[round(v, 2) for v in x['ms']] for x in xs] for m, xs in ind.items()} }, HDR "
+        f"finite {[x['finite'] for xs in ind.values() for x in xs]}, LDR std "
+        f"{ {m: [round(x['ldr_std'], 2) for x in xs] for m, xs in ind.items()} }; the SHARC "
+        f"caches of the two ranks equal: {caches_equal} "
+        f"({int((ind['sharc'][0]['cache'].key != 0).sum())} occupied slots)")
+    assert all(x["finite"] and x["ldr_std"] > 1.0 for xs in ind.values() for x in xs), ind
+    assert caches_equal and (ind["sharc"][0]["cache"].key != 0).any()
+    def against_one_rank(key):
+        within = []
+        for a, b in zip(res[1][0]["lifted"], res[2][0][key]):
+            d = np.abs(a.astype(np.int32) - b.astype(np.int32)).max(-1)
+            bad_rows = np.nonzero((d > 2).any(1))[0]
+            within.append((float(np.mean(d <= 2)), int(d.max()), float(d.mean()),
+                           [int(bad_rows[0]), int(bad_rows[-1])] if len(bad_rows) else None))
+        return within
+    ref = against_one_rank("lifted")
+    log(f"phase31 caps lifted, n=2 against n=1, {width}x{size[2]}, frames "
+        f"1-{SHARD_LIFTED_FRAMES}, the reference's sharded semantics (zero halo rows past the "
+        f"frame, the band-limited bloom pyramid): share of LDR pixels within 2/255, max |d|, "
+        f"mean |d|, first and last row off by more {ref}; below 99% on "
+        f"{sum(w[0] < 0.99 for w in ref)} of {len(ref)} frames: measured, not gated (a held "
+        f"reference delta, ROADMAP Queue 3)")
+    log(f"phase31 caps lifted, n=2 against n=1, frames 1-{SHARD_LIFTED_FRAMES}, one reference "
+        f"delta lifted: edge rows past the frame (the bloom pyramid remains) "
+        f"{against_one_rank('lifted_fill')}; bloom() on the gathered frame (the zero rows "
+        f"remain) {against_one_rank('lifted_bloom')}")
+    seams = against_one_rank("lifted_seams")
+    log(f"phase31 caps lifted, n=2 against n=1, frames 1-{SHARD_LIFTED_FRAMES}, with the "
+        f"reference's two sharded-frame deltas also lifted (edge rows past the frame, bloom() "
+        f"on the gathered frame; the seams remain): {seams} (gate >= 99%)")
+    assert all(w[0] >= 0.99 for w in seams), seams
+    return res
+
+
+def pt_rank(mesh, job):
+    """Phase 32: PathTracerShardedRenderer at job's size, ``calls`` calls:
+    each call's accumulation and ms."""
+    from hobbyrenderer_tpu_torch import bench_parallel as bp
+    r = bp.make_renderer(dict(job, kind="pt"), mesh.device)
+    pr = bp.make_sharded(dict(job, kind="pt"), r, mesh)
+    vc, vp = bp.view_constants(r, 0)
+    accum, ms = [], []
+    for _ in range(job["calls"]):
+        f0 = time.perf_counter()
+        pr.render(r.gpu, vc, r.config.settings, 1 / 60, vp)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - f0) * 1e3)
+        accum.append(pr.accum.cpu().numpy())
+    r.shutdown()
+    return dict(accum=accum, ms=ms)
+
+
+def small_rank(mesh, job):
+    """Phase 32 at 256x192 on CUDA or CPU ranks: the sharded flagship's and
+    the sharded path tracer's LDR frames, and the streamed flagship's first
+    feedback."""
+    from hobbyrenderer_tpu_torch import bench_parallel as bp
+    if mesh.device.type == "cpu":     # the host's cores, shared by the CPU ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // mesh.n))
+    out = {}
+    for kind in ("flagship", "pt"):
+        j = dict(job, kind=kind)
+        r = bp.make_renderer(j, mesh.device)
+        sr = bp.make_sharded(j, r, mesh)
+        ldr = []
+        for i in range(job["frames"]):
+            vc, vp = bp.view_constants(r, i)
+            ldr.append(sr.render(r.gpu, vc, r.config.settings, 1 / 60, vp).cpu().numpy())
+        out[kind] = ldr
+        r.shutdown()
+    if mesh.device.type == "cuda":
+        j = dict(job, kind="flagship", tex_streaming=True)
+        r = bp.make_renderer(j, mesh.device)
+        sr = bp.make_sharded(j, r, mesh)
+        vc, vp = bp.view_constants(r, 0)
+        sr.render(r.gpu, vc, r.config.settings, 1 / 60, vp)
+        out["feedback"] = sr.last_tex_feedback.cpu().numpy()
+        r.shutdown()
+    return out
+
+
+def phase_sharded_rest(card):
+    """Phase 32: the sample-parallel path tracer at bench.py's size (960x540,
+    2 gloo ranks sharing cuda:0, 2 calls), each call's accumulation equal
+    bit for bit to this process's single-device path tracer at 2 samples a
+    frame (trace_paths(spp=2)); the streamed flagship's feedback summed over
+    2 ranks equal to the whole frame's; and at 256x192 on stress:4, 2 CUDA
+    ranks against 2 CPU ranks: the sharded flagship >= 99% of LDR pixels
+    within 2/255, the sharded path tracer under phase 17's gate (>= 99%)."""
+    from hobbyrenderer_tpu_torch import bench_parallel as bp
+    from hobbyrenderer_tpu_torch.config import Config
+    from hobbyrenderer_tpu_torch.ops import culling as cullops
+    from hobbyrenderer_tpu_torch.ops import raster as rasterops
+    from hobbyrenderer_tpu_torch.parallel.launch import run_ranks
+    from hobbyrenderer_tpu_torch.renderer import Renderer
+    W, H, calls = 960, 540, 2
+    job = dict(scene="stress", width=W, height=H, calls=calls)
+    t0 = time.perf_counter()
+    ranks = run_ranks(pt_rank, 2, backend="gloo", devices=["cuda:0"] * 2, args=(job,),
+                      deadline_s=600)
+    r = Renderer(Config(scene="stress", width=W, height=H, mode="path_tracer", pt_spp=2,
+                        cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_pt_spp2")),
+                 device="cuda")
+    vc, vp = bp.view_constants(r, 0)
+    equal = []
+    for c in range(calls):
+        r._model.render(r.gpu, vc, r.config.settings, 1 / 60, vp)
+        ref = r._model.accum.cpu().numpy()
+        equal.append([bool(np.array_equal(x["accum"][c], ref)) for x in ranks])
+    r.shutdown()
+    call_ms = [max(x["ms"][c] for x in ranks) for c in range(calls)]
+    msamples = [2 * W * H / ms / 1e3 for ms in call_ms]
+    log(f"phase32 sharded path tracer stress {W}x{H}, 2 gloo ranks sharing {card} (their "
+        f"contention, not scaling), {calls} calls: accumulation equal to the single-device "
+        f"spp=2 path tracer's {equal}; call ms per rank {[x['ms'] for x in ranks]}, Msamples/s "
+        f"over both ranks {[round(v, 3) for v in msamples]} ({time.perf_counter() - t0:.1f} s)")
+    assert all(all(e) for e in equal), equal
+
+    small = dict(scene="stress:4", width=256, height=192, frames=3)
+    t0 = time.perf_counter()
+    cu = run_ranks(small_rank, 2, backend="gloo", devices=["cuda:0"] * 2, args=(small,),
+                   deadline_s=600)
+    t1 = time.perf_counter()
+    cp = run_ranks(small_rank, 2, backend="gloo", devices=["cpu"] * 2, args=(small,),
+                   deadline_s=600)
+    t2 = time.perf_counter()
+    rs = Renderer(Config(scene="stress:4", width=256, height=192, tex_streaming=True,
+                         direct_mode="restir", indirect_mode="restir",
+                         cache_dir=os.path.join(tempfile.gettempdir(), "hr_smoke_fb")),
+                  device="cuda")
+    vc, _ = bp.view_constants(rs, 0)
+    cull = cullops.cull_pairs(rs.gpu, vc, alpha_mask=(True, True, False))
+    slots, _ = cullops.compact_mask(cull["mask"], max(int(rs.gpu.lod0_pair_capacity), 1))
+    ro, attr = rasterops.rasterize(rs.gpu, vc, slots, 256, 192)
+    fb1 = rasterops.resolve_gbuffer(rs.gpu, vc, ro, attr, want_feedback=True)[1].cpu().numpy()
+    rs.shutdown()
+    fb_eq = bool(np.array_equal(cu[0]["feedback"], fb1)) and bool(
+        np.array_equal(cu[1]["feedback"], fb1))
+    res = {}
+    for kind in ("flagship", "pt"):
+        d = [np.abs(a.astype(np.int32) - b.astype(np.int32)).max(-1)
+             for a, b in zip(cu[0][kind], cp[0][kind])]
+        res[kind] = [(float(np.mean(x <= 2)), int(x.max())) for x in d]
+    log(f"phase32 streamed flagship stress:4 256x192: the feedback summed over 2 ranks equals the "
+        f"whole frame's: {fb_eq} ({int(fb1.sum())} samples); 2 CUDA ranks against 2 CPU ranks, "
+        f"share of LDR pixels within 2/255 and max |d| per frame: flagship {res['flagship']}, "
+        f"path tracer {res['pt']} (CUDA ranks {t1 - t0:.1f} s, CPU ranks {t2 - t1:.1f} s)")
+    assert fb_eq and fb1.sum() > 0
+    assert all(w >= 0.99 for w, _ in res["flagship"] + res["pt"]), res
+    return dict(msamples=msamples, call_ms=call_ms)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs "
@@ -1816,9 +2390,7 @@ def main():
     t_start = time.perf_counter()
     late_failures = []
     # each kernel's launch count: (module, attribute)
-    counters = {"K1": (rk, "launches"), "K2": (rko, "launches"), "K3": (b16ops, "launches"),
-                "K4": (beamops, "launches"), "K5": (rk, "tiles_launches"), "K6": (tk, "launches"),
-                "K7": (wk, "leaf_launches"), "K8": (wk, "int_launches"), "K9": (wk, "hc_launches")}
+    counters = kernel_counters()
 
     def reset_counts():
         for m, attr in counters.values():
@@ -2520,6 +3092,18 @@ def main():
     # ---- phase 29: streaming and the views, CUDA against CPU --------------
     phase_streaming_cuda_vs_cpu(Renderer, Config, card)
 
+    # ---- phases 30-32: the multi-GPU layer, ranks sharing this card --------
+    sharded = phase_sharded_flagship(card)
+    pt_sharded = phase_sharded_rest(card)
+
+    def sharded_launches(key):
+        """Each rank's launches over phase 31's frames, by world size (and
+        the with_csm frame's at n = 2)."""
+        out = {f"n{n}": [sum(c[key] for c in x["per_frame"]) for x in sharded[n]]
+               for n, _ in SHARD_CONFIGS}
+        out["n2_deferred_with_csm"] = [x["csm_launches"][key] for x in sharded[2]]
+        return out
+
     assert not late_failures, late_failures
     jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not jax_mods, f"the port loaded jax: {jax_mods[:5]}"
@@ -2539,7 +3123,8 @@ def main():
                     launches_ibl_combined_regir_path=launches_ib[key],
                     launches_env_anim_path=launches_ea[key], launches_taau_path=tu["launches"][key],
                     launches_pt=launches_pt[key], launches_bench_wkernels=launches_wk[key],
-                    launches_streamed_path=launches_sf[key], **extra)
+                    launches_streamed_path=launches_sf[key],
+                    launches_sharded=sharded_launches(key), **extra)
 
     def wk_entry(name, key, replaces, variants):
         # ms: the kernel's own device time (CUPTI); call_ms adds the launch
@@ -2561,7 +3146,9 @@ def main():
         entry("raster_resolve_tiles", "hobbyrenderer_tpu_torch/csrc/raster_resolve.cu",
               "hobbyrenderer_tpu/ops/raster_pallas.py:212", "K1", attr_err, k1_ms, k1_plain_ms,
               k1_bound, unit_items=rk.UNIT_ITEMS, calls=[raster_summary(x) for x in k1_rows],
-              taau_internal_call=tu["k1"], streamed_frame=sf["held"]["k1"]),
+              taau_internal_call=tu["k1"], streamed_frame=sf["held"]["k1"],
+              band_call_n2_rank1=sharded[2][1]["k1_band"],
+              band_call_n4_rank1=sharded[4][1]["k1_band"]),
         entry("restir_candidates", "hobbyrenderer_tpu_torch/csrc/restir_candidates.cu",
               "hobbyrenderer_tpu/ops/restir_pallas.py:65", "K2", k2_err, k2_ms, k2_plain_ms,
               k2_bound, issue_ms=k2_issue_ms, issue_clock_mhz=clock_mhz,
@@ -2590,7 +3177,8 @@ def main():
               "hobbyrenderer_tpu/ops/raster_pallas.py:148", "K5", k5_main["attr_max_err"],
               k5_main["ms"], k5_main["plain_ms"], (k5_main["bound_ms"], k5_main["bound_by"]),
               main=launches_nb, unit_items=rk.UNIT_ITEMS, work=raster_summary(k5_main),
-              depth_visid=raster_summary(k5_runs[False])),
+              depth_visid=raster_summary(k5_runs[False]),
+              sharded_atlas_n2=sharded[2][0]["k5"]),
         entry("closest_hit_blocks", "hobbyrenderer_tpu_torch/csrc/closest_blocks.cu",
               "hobbyrenderer_tpu/ops/trace.py:64", "K6", k6_main["err"], k6_main["ms"],
               k6_main["plain_ms"], k6_main["bound"], main=launches_k6,
@@ -2614,6 +3202,12 @@ def main():
                             "syncs", "syncs_by_pass")}
         | {"frame_tex_streaming_ms": sf["pass_ms"]["Frame/TexStreaming"],
            "debug_views_ms": {k: v["ms"] for k, v in dvs.items()}}))
+    log(f"sharded flagship on {card} (n > 1: ranks sharing the card): " + json.dumps(
+        {f"n{n}": {"size": [1920, sharded[n][0]["ldr_shape"][0]],
+                   "median_ms": [statistics.median(x["frame_ms"][1:]) for x in sharded[n]],
+                   "collective_ms_timed": [x["collective_ms_timed"] for x in sharded[n]],
+                   "collectives_a_frame": sharded[n][0]["coll"][-1]}
+         for n, _ in SHARD_CONFIGS} | {"pt_960x540_n2": pt_sharded}))
     log(f"chip_smoke total seconds: {time.perf_counter() - t_start:.1f}")
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

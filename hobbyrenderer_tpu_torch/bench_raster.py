@@ -43,10 +43,11 @@ OPS_A_RESOLVE = 76        # 16 planes x 4, a division and 11 products a drawn pi
 K1_CALLS = ("Raster", "RasterPhase2", "MaskedLayer", "Transparent 1", "Transparent 2")
 
 
-def kept_strip_rows(records, work_tile, work_slot, *, tiles, tx):
+def kept_strip_rows(records, work_tile, work_slot, *, tiles, tx, ty0=0):
     """The (row, pixel row) pairs of the live items that the strip test
     (ops/raster_kernel._rows_outside_strips) keeps: the rows the kernels
-    evaluate, each at the 32 pixels of its pixel row."""
+    evaluate, each at the 32 pixels of its pixel row (``ty0``: a row band's
+    first tile row)."""
     from hobbyrenderer_tpu_torch.ops import raster_kernel as rk
     n = int((work_tile < tiles).sum())
     kept = 0
@@ -54,12 +55,12 @@ def kept_strip_rows(records, work_tile, work_slot, *, tiles, tx):
         t = work_tile[b0:min(n, b0 + 2048)].long()
         A = records[work_slot[b0:b0 + t.shape[0]].long()][..., 0:9]
         oxf = ((t % tx) * rk.TILE).to(torch.float32)[:, None, None] + 0.5
-        oyf = ((t // tx) * rk.TILE).to(torch.float32)[:, None, None] + 0.5
+        oyf = ((t // tx + ty0) * rk.TILE).to(torch.float32)[:, None, None] + 0.5
         kept += int((~rk._rows_outside_strips(A, oxf, oyf)).sum())
     return kept
 
 
-def call_stats(records, work_tile, work_slot, *, tiles, tx):
+def call_stats(records, work_tile, work_slot, *, tiles, tx, ty0=0):
     """What a call gives the kernel to do: its live items, the work units
     and split tiles (ops/raster_kernel.split_units at UNIT_ITEMS), and the
     (row, pixel row) pairs the kernel evaluates against all of them
@@ -71,11 +72,12 @@ def call_stats(records, work_tile, work_slot, *, tiles, tx):
     return dict(items=n, tiles=tiles, busiest_tile=int(per_tile.max()) if n else 0,
                 empty_tiles=int((per_tile == 0).sum()), units=units,
                 split_tiles=int((per_tile > unit_items).sum()),
-                strip_rows=kept_strip_rows(records, work_tile, work_slot, tiles=tiles, tx=tx),
+                strip_rows=kept_strip_rows(records, work_tile, work_slot, tiles=tiles, tx=tx,
+                                           ty0=ty0),
                 strip_rows_all=n * 32 * 32)
 
 
-def raster_bound(records, work_tile, work_slot, visid, *, tiles, tx, k1):
+def raster_bound(records, work_tile, work_slot, visid, *, tiles, tx, k1, ty0=0):
     """(bound_ms, bound_by, bytes, operations) of a K1 (``k1``) or K5 call,
     counted on the work, whatever implements it. Bytes: the 9 raster-plane
     lanes of the 32 rows of each distinct chunk slot on the worklist, the
@@ -87,7 +89,8 @@ def raster_bound(records, work_tile, work_slot, visid, *, tiles, tx, k1):
     n = int((work_tile < tiles).sum())
     slots = torch.unique(work_slot[:n]).numel()
     nbytes = slots * 32 * 9 * 4 + n * 8 + (tiles + 1) * 4 + tiles * 1024 * 8
-    ops = kept_strip_rows(records, work_tile, work_slot, tiles=tiles, tx=tx) * 32 * OPS_A_PIXEL_ROW
+    ops = (kept_strip_rows(records, work_tile, work_slot, tiles=tiles, tx=tx, ty0=ty0)
+           * 32 * OPS_A_PIXEL_ROW)
     if k1:
         drawn = visid[visid >= 0]
         nbytes += torch.unique(drawn).numel() * 48 * 4 + tiles * 16 * 1024 * 4

@@ -10,6 +10,10 @@
 //   work_slot  (Wcap,) i32      chunk slot of each worklist item
 //   depth (T,1024) f32, visid (T,1024) i32 (= chunk_slot*32 + row),
 //   attrs (T,16,1024) f32.
+// Tile t covers frame pixels x in (t % tx) * 32 + [0, 32), y in
+// (t / tx + ty0) * 32 + [0, 32): ty0 is the first tile row of a row band
+// (0 for a whole frame), as the TPU kernel's ``ty0`` argument, so a band's
+// rows are computed with the same arithmetic as the whole frame's.
 //
 // K5 replaces: hobbyrenderer_tpu/ops/raster_pallas.py::_raster_kernel /
 // raster_tiles: the same raster without attributes, over records of any row
@@ -86,7 +90,7 @@ struct Args {
   const int* work_slot;
   const int4* units;          // the plan's units: (tile, first item, items, tile's units)
   const int* n_units;         // the plan's unit count
-  int T, tx;
+  int T, tx, ty0;             // tiles, tiles a row, the band's first tile row
   float* depth;
   int* visid;
   float* attrs;
@@ -277,7 +281,7 @@ __global__ void __launch_bounds__(THREADS, 4) raster_units_kernel(Args a) {
     // 9..11 (padding in the records) take the planes' constants re-centred
     // on the tile origin, c = A0*ox + A1*oy + A2 rounded per step
     const float oxf = (float)((t % a.tx) * TILE) + 0.5f;
-    const float oyf = (float)((t / a.tx) * TILE) + 0.5f;
+    const float oyf = (float)((t / a.tx + a.ty0) * TILE) + 0.5f;
     for (int idx = threadIdx.x; idx < n * ROWS; idx += THREADS) {
       float* R = stage + idx * SROW;
       R[9] = __fadd_rn(__fadd_rn(__fmul_rn(R[0], oxf), __fmul_rn(R[1], oyf)), R[2]);
@@ -392,8 +396,8 @@ int resident() {
 }
 
 Args make_args(const void* records, int lanes, const void* work_slot, const void* tile_start,
-               const void* units, const void* n_units, int T, int tx, void* depth, void* visid,
-               void* attrs, void* keys, void* done, void* queue) {
+               const void* units, const void* n_units, int T, int tx, int ty0, void* depth,
+               void* visid, void* attrs, void* keys, void* done, void* queue) {
   Args a;
   a.records = (const float*)records;
   a.lanes = lanes;
@@ -403,6 +407,7 @@ Args make_args(const void* records, int lanes, const void* work_slot, const void
   a.n_units = (const int*)n_units;
   a.T = T;
   a.tx = tx;
+  a.ty0 = ty0;
   a.depth = (float*)depth;
   a.visid = (int*)visid;
   a.attrs = (float*)attrs;
@@ -447,28 +452,28 @@ extern "C" int hr_raster_resolve_tiles(const void* records, const void* work_til
                                        const void* work_slot, int wcap, void* tile_start,
                                        void* units, void* n_units, void* depth, void* visid,
                                        void* attrs, void* keys, void* done, void* queue, int T,
-                                       int tx, int grid, void* stream) {
+                                       int tx, int ty0, int grid, void* stream) {
   if (grid <= 0) return (int)cudaErrorInvalidValue;
   if (T <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = plan(work_tile, wcap, T, tile_start, units, n_units, s);
   if (err != cudaSuccess) return (int)err;
-  const Args a = make_args(records, LANES, work_slot, tile_start, units, n_units, T, tx, depth,
-                           visid, attrs, keys, done, queue);
+  const Args a = make_args(records, LANES, work_slot, tile_start, units, n_units, T, tx, ty0,
+                           depth, visid, attrs, keys, done, queue);
   return (int)launch<true, true>(a, grid, s);
 }
 
 extern "C" int hr_raster_tiles(const void* records, const void* work_tile,
                                const void* work_slot, int wcap, void* tile_start, void* units,
                                void* n_units, void* depth, void* visid, void* keys, void* done,
-                               void* queue, int T, int tx, int lanes, int depth_only, int grid,
-                               void* stream) {
+                               void* queue, int T, int tx, int ty0, int lanes, int depth_only,
+                               int grid, void* stream) {
   if (grid <= 0 || lanes < 12 || lanes % 4 != 0) return (int)cudaErrorInvalidValue;
   if (T <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = plan(work_tile, wcap, T, tile_start, units, n_units, s);
   if (err != cudaSuccess) return (int)err;
-  const Args a = make_args(records, lanes, work_slot, tile_start, units, n_units, T, tx, depth,
-                           visid, nullptr, keys, done, queue);
+  const Args a = make_args(records, lanes, work_slot, tile_start, units, n_units, T, tx, ty0,
+                           depth, visid, nullptr, keys, done, queue);
   return (int)(depth_only ? launch<false, false>(a, grid, s) : launch<false, true>(a, grid, s));
 }

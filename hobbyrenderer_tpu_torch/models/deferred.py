@@ -90,23 +90,19 @@ from hobbyrenderer_tpu_torch.ops import restir_gi as giops
 from hobbyrenderer_tpu_torch.ops import sampling as smp
 from hobbyrenderer_tpu_torch.ops import shading as shadeops
 from hobbyrenderer_tpu_torch.ops import sharc as sharcops
+from hobbyrenderer_tpu_torch.ops import sharc_indirect as sharcind
 from hobbyrenderer_tpu_torch.ops import specular as specops
 from hobbyrenderer_tpu_torch.ops import sky as skyops
 from hobbyrenderer_tpu_torch.ops import ssgi as ssgiops
 from hobbyrenderer_tpu_torch.ops import sss as sssops
 from hobbyrenderer_tpu_torch.ops import taa as taaops
-from hobbyrenderer_tpu_torch.ops import trace as traceops
 from hobbyrenderer_tpu_torch.ops import transparent as transops
-from hobbyrenderer_tpu_torch.ops.intersect import offset_ray_origin
 from hobbyrenderer_tpu_torch.ops.resize import resize_bilinear
-from hobbyrenderer_tpu_torch.ops.upsample import joint_bilateral_upsample
-from hobbyrenderer_tpu_torch.ops.restir_gi import _hit_radiance
 from hobbyrenderer_tpu_torch.ops.restir_presets import get_preset
 from hobbyrenderer_tpu_torch.utils.rng import pcg3d, uniform_from_bits
 
 GI_SCALE = 4           # ReSTIR GI grid divisor
 GI_TRACE_STEPS = 512   # the bounce rays' 4-ary step budget (K3: 128 steps)
-SHARC_TRACE_STEPS = 512   # the SHARC bounces' 4-ary step budget (K3: 128 steps)
 # the GI and specular counters of Renderer.stats(), per frame (device scalars)
 GI_STATS = ("rt_overflow_gi", "rt_k3_lanes_gi", "rt_k3_capped_gi", "rt_k3_lanes_gi_nee",
             "rt_k3_capped_gi_nee")
@@ -448,43 +444,15 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
     if not use_restir:
         g.get("Denoise").enabled = False
 
-    def bounce_rays(gb, s: int, salt: int, frame: int, settings):
-        """One cosine-distributed bounce ray per (s x s)-subsampled pixel:
-        the (sh, sw) subsampler and the grid's points, normals, albedo,
-        valid mask, lane ids, origins and directions."""
-        sh, sw = height // s, width // s
-
-        def sub(img):
-            return img[::s, ::s][:sh, :sw]
-        pos = sub(gb.world_pos).reshape(-1, 3)
-        nrm = sub(gb.normal).reshape(-1, 3)
-        gn = sub(gb.geo_normal).reshape(-1, 3)
-        pix = torch.arange(pos.shape[0], dtype=torch.int64, device=pos.device)
-        bits = pcg3d(torch.stack([pix, torch.full_like(pix, frame),
-                                  torch.full_like(pix, salt)], -1))
-        d = smp.to_world(nrm, smp.cosine_sample_hemisphere(uniform_from_bits(bits[..., 0]),
-                                                           uniform_from_bits(bits[..., 1])))
-        o = offset_ray_origin(pos, gn, d) + gn * settings.shadow_bias
-        return (sub, pos, nrm, sub(gb.albedo).reshape(-1, 3), sub(gb.valid).reshape(-1), pix,
-                o, d)
-
-    def traced_bounce(ctx, res, o, d, val, pix, skip_pool_emissive, names):
-        """Closest hits of the bounce rays (K3 under SHARC_TRACE_STEPS) and
-        the outgoing radiance at each hit (emission, one NEE sample, sky
-        exitance); the walks' lanes and capped lanes go to the resources
-        ``names``."""
-        hit, so = traceops.closest_hit_counted(ctx.rt, o, d, val,
-                                               max_steps=SHARC_TRACE_STEPS)
-        nee = {}
-        hpos, hn, h_rad = _hit_radiance(
-            ctx.gpu, ctx.rt, ctx.rt.lights, hit, o, d, pix, ctx.vc["frame_index"],
-            stats_out=nee, skip_pool_emissive=skip_pool_emissive,
-            sky_sh=res["sky_irradiance"],
-            ibl_scale=ctx.settings.ibl_intensity * ctx.settings.ambient_scale)
-        for name, v in zip(names, (so["lanes"], so["capped"], nee["k3_lanes"],
-                                   nee["k3_capped"])):
-            res[name] = v
-        return hit, hpos, hn, h_rad
+    def traced_bounce(ctx, res, scale, seed, salt, skip_pool_emissive, names):
+        """The SHARC bounce of the 1/scale grid (ops/sharc_indirect.py); the
+        walks' lanes and capped lanes go to the resources ``names``."""
+        so = {}
+        b = sharcind.bounce(ctx.gpu, ctx.rt, res["gbuffer"], ctx.vc, ctx.settings, scale, seed,
+                            salt, skip_pool_emissive, res["sky_irradiance"], stats_out=so)
+        for name, k in zip(names, ("lanes", "capped", "nee_lanes", "nee_capped")):
+            res[name] = so[k]
+        return b
 
     @g.add
     @render_pass("SHARC", reads=("gbuffer", "sharc_cache", "sky_irradiance"),
@@ -496,18 +464,10 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         own value at the hit's cell: one more bounce a frame), then the
         resolve (aging, eviction) and a full-res query."""
         gb = res["gbuffer"]
-        cache = res["sharc_cache"]
         cam = ctx.vc["camera_pos"]
-        _, pos, nrm, alb, val, pix, o, d = bounce_rays(gb, 4, 55, ctx.vc["frame_index"],
-                                                       ctx.settings)
-        hit, hpos, hn, h_rad = traced_bounce(ctx, res, o, d, val, pix + 0x5A4C, False,
-                                             SHARC_STATS)
-        fb, fb_hit = sharcops.sharc_query(cache, hpos, hn, cam)
-        # cosine-sampled bounce: albedo * L estimates irradiance / pi; a miss
-        # adds nothing (the IBL ambient covers the sky)
-        sample = torch.where((hit.tri < 0)[..., None], 0.0,
-                             alb * (h_rad + torch.where(fb_hit[..., None], fb, 0.0)))
-        cache = sharcops.sharc_resolve(sharcops.sharc_update(cache, pos, nrm, sample, val, cam))
+        b = traced_bounce(ctx, res, sharcind.UPDATE_SCALE, sharcind.UPDATE_SEED,
+                          sharcind.UPDATE_SALT, False, SHARC_STATS)
+        cache = sharcind.update_cache(res["sharc_cache"], b, cam)
         res["sharc_cache"] = cache
         ind, _ = sharcops.sharc_query(cache, gb.world_pos.reshape(-1, 3),
                                       gb.normal.reshape(-1, 3), cam)
@@ -527,25 +487,10 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         resolved cache's value at the hit's cell; demodulated by albedo,
         RELAX temporal + a 2-step A-trous at the half-res grid, then a
         depth/normal-guided upsample and the full-res albedo."""
-        gb = res["gbuffer"]
-        s = 2
-        sub, _, _, _, val, pix, o, d = bounce_rays(gb, s, 77, ctx.vc["frame_index"],
-                                                   ctx.settings)
-        hit, hpos, hn, h_rad = traced_bounce(ctx, res, o, d, val, pix + 0xC0B1, use_restir,
-                                             SHARCQ_STATS)
-        fb, fb_ok = sharcops.sharc_query(res["sharc_cache"], hpos, hn, ctx.vc["camera_pos"])
-        hit_ok = hit.tri >= 0
-        rad = h_rad + torch.where((fb_ok & hit_ok)[..., None], fb, 0.0)
-        irr = torch.where((val & hit_ok)[..., None], rad, 0.0).reshape(height // s,
-                                                                        width // s, 3)
-        sgb = specops._SubGB(motion=sub(gb.motion) / float(s), depth=sub(gb.depth),
-                             normal=sub(gb.normal), valid=sub(gb.valid))
-        color, var, st = dnops.temporal_accumulate(irr, sgb, res["sharc_q_state"])
-        color = dnops.atrous_filter(color, var, sgb, iterations=2)
-        full_irr = joint_bilateral_upsample(color, sgb.depth, sgb.normal, sgb.valid, gb.depth,
-                                            gb.normal, s)
-        res["sharc_indirect"] = torch.where(gb.valid[..., None], gb.albedo * full_irr, 0.0)
-        res["sharc_q_state"] = st
+        b = traced_bounce(ctx, res, sharcind.QUERY_SCALE, sharcind.QUERY_SEED,
+                          sharcind.QUERY_SALT, use_restir, SHARCQ_STATS)
+        res["sharc_indirect"], res["sharc_q_state"] = sharcind.query_indirect(
+            res["gbuffer"], res["sharc_cache"], b, res["sharc_q_state"], ctx.vc["camera_pos"])
 
     if not use_sharc_traced:
         g.get("SharcIndirectQuery").enabled = False
@@ -573,16 +518,7 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         zero = torch.zeros((), dtype=torch.int64, device=gb.depth.device)
         res["rt_k3_lanes_ddgi"] = so.get("k3_lanes", zero)
         res["rt_k3_capped_ddgi"] = so.get("k3_capped", zero)
-        s = 4
-        sh, sw = height // s, width // s
-
-        def sub(img):
-            return img[::s, ::s][:sh, :sw]
-        E = ddgiops.ddgi_query(vol, sub(gb.world_pos).reshape(-1, 3),
-                               sub(gb.normal).reshape(-1, 3)).reshape(sh, sw, 3)
-        E = joint_bilateral_upsample(E, sub(gb.depth), sub(gb.normal), sub(gb.valid),
-                                     gb.depth, gb.normal, s)
-        res["ddgi_indirect"] = torch.where(gb.valid[..., None], (gb.albedo / np.pi) * E, 0.0)
+        res["ddgi_indirect"] = ddgiops.ddgi_indirect(vol, gb)
         res["ddgi_volume"] = vol
 
     if not use_ddgi:
@@ -643,10 +579,15 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
     if not use_spec:
         g.get("SpecularIndirect").enabled = False
 
+    # the sun's shadow mask, where a pass writes one (without a ray-tracing
+    # scene the Normal and IBL modes shade the sun unshadowed, as the JAX graph)
+    shadowed = not use_restir and (gates["use_sun_shadow"] or mode == RenderingMode.NORMAL_BASIC)
+
     @g.add
     @render_pass("DeferredLighting",
                  reads=("gbuffer", "sky_irradiance")
-                 + (("restir_direct",) if use_restir else ("sun_shadow",))
+                 + (("restir_direct",) if use_restir else ())
+                 + (("sun_shadow",) if shadowed else ())
                  + (("spec_indirect", "spec_weight") if use_spec else ())
                  + (("sharc_indirect",) if use_sharc else ())
                  + (("ddgi_indirect",) if use_ddgi else ())
@@ -661,11 +602,13 @@ def build_deferred_graph(width: int, height: int, visible_capacity: int,
         if use_restir:
             direct = res["restir_direct"]
         else:
-            mask = res["sun_shadow"]
-            sun_idx = ctx.gpu.meta["sun_index"]
+            shadow_fn = None
+            if shadowed:
+                mask = res["sun_shadow"]
+                sun_idx = ctx.gpu.meta["sun_index"]
 
-            def shadow_fn(i, L, dist):
-                return mask if i == sun_idx else None
+                def shadow_fn(i, L, dist):
+                    return mask if i == sun_idx else None
             direct = shadeops.shade_all_lights(ctx.gpu, gb.world_pos, gb.normal, v,
                                                gb.albedo, metal, rough,
                                                shadow_fn=shadow_fn)

@@ -20,6 +20,7 @@ import torch
 from hobbyrenderer_tpu_torch.ops import sky as skyops
 from hobbyrenderer_tpu_torch.ops import trace as traceops
 from hobbyrenderer_tpu_torch.ops.restir_gi import _hit_radiance
+from hobbyrenderer_tpu_torch.ops.upsample import joint_bilateral_upsample
 from hobbyrenderer_tpu_torch.scene.gpu import MATI_DOUBLE_SIDED
 from hobbyrenderer_tpu_torch.utils import math as hm
 from hobbyrenderer_tpu_torch.utils import tmath as tm
@@ -31,6 +32,7 @@ N_RAYS = 64            # probe rays per update
 HYSTERESIS = 0.97
 BACKFACE_LIMIT = 0.25  # share of backface hits above which a probe is inside
 NORMAL_BIAS = 0.05     # query bias along the surface normal (x spacing norm)
+QUERY_SCALE = 4        # the irradiance query's grid divisor
 ENERGY = 0.95
 MASK32 = 0xFFFFFFFF
 PROBE_COUNTS = (8, 4, 8)   # probes along x, y, z
@@ -222,6 +224,23 @@ def ddgi_query(vol: DDGIVolume, pos, normal):
                 acc = acc + _oct_sample(vol.irradiance, pid, normal) * w[..., None]
                 acc_w = acc_w + w
     return acc / torch.clamp(acc_w, min=1e-6)[..., None]
+
+
+def ddgi_indirect(vol: DDGIVolume, gb, shard=None):
+    """The DDGI indirect of G-buffer ``gb`` (a rank's row band under
+    ``shard``, else the whole frame): the volume's irradiance queried on the
+    quarter-res grid, depth/normal-guided upsampling, times albedo / pi."""
+    s = QUERY_SCALE
+    H, W = gb.depth.shape
+    sh, sw = H // s, W // s
+
+    def sub(img):
+        return img[::s, ::s][:sh, :sw]
+    E = ddgi_query(vol, sub(gb.world_pos).reshape(-1, 3),
+                   sub(gb.normal).reshape(-1, 3)).reshape(sh, sw, 3)
+    E = joint_bilateral_upsample(E, sub(gb.depth), sub(gb.normal), sub(gb.valid), gb.depth,
+                                 gb.normal, s, shard=shard)
+    return torch.where(gb.valid[..., None], (gb.albedo / math.pi) * E, 0.0)
 
 
 def ddgi_probe_overlay(ldr, vol: DDGIVolume, vc, radius_px: float = 3.0):

@@ -4,7 +4,8 @@ of hobbyrenderer_tpu/ops/denoise.py, single device): temporal accumulation
 then a variance-guided A-trous wavelet filter with normal, depth and
 luminance edge stops. Profiles: 'relax' (fixed footprint) and 'reblur'
 (the kernel radius shrinks as the history grows). All taps are
-edge-clamped shifted slices."""
+edge-clamped shifted slices; under a row band (``shard``, ops/shard_utils)
+the rows past the band's edges come from the neighbouring ranks."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from hobbyrenderer_tpu_torch.ops.shading import brdf_params
+from hobbyrenderer_tpu_torch.ops.shard_utils import full_height, global_y0
 from hobbyrenderer_tpu_torch.ops.warp import pad_edges, warp_image
 from hobbyrenderer_tpu_torch.utils import tmath as tm
 
@@ -38,7 +40,7 @@ def denoise_init(h: int, w: int, device) -> DenoiseState:
 
 
 def temporal_accumulate(signal, gb, state: DenoiseState, max_history: float = 32.0,
-                        sample_valid=None):
+                        sample_valid=None, shard=None):
     """Reproject, validate by depth + normal, blend with 1/(history+1),
     accumulate luminance moments. Returns (color, variance, new state).
 
@@ -50,13 +52,13 @@ def temporal_accumulate(signal, gb, state: DenoiseState, max_history: float = 32
     H, W = signal.shape[0], signal.shape[1]
     dev = signal.device
     xs = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
-    ys = torch.arange(H, dtype=torch.float32, device=dev) + 0.5
+    ys = torch.arange(H, dtype=torch.float32, device=dev) + global_y0(shard) + 0.5
     prev_x = xs[None, :] + gb.motion[..., 0]
     prev_y = ys[:, None] + gb.motion[..., 1]
-    on = (prev_x >= 0) & (prev_x < W) & (prev_y >= 0) & (prev_y < H)
+    on = (prev_x >= 0) & (prev_x < W) & (prev_y >= 0) & (prev_y < full_height(shard, H))
     packed = torch.cat([state.color, state.moments, state.history[..., None],
                         state.depth[..., None], state.normal], -1)
-    pw = warp_image(packed, gb.motion, halo=REPROJECT_HALO)
+    pw = warp_image(packed, gb.motion, halo=REPROJECT_HALO, shard=shard)
     pc, pm = pw[..., 0:3], pw[..., 3:5]
     ph, pd, pn = pw[..., 5], pw[..., 6], pw[..., 7:10]
 
@@ -90,13 +92,15 @@ def temporal_accumulate(signal, gb, state: DenoiseState, max_history: float = 32
 
 
 def atrous_filter(color, var, gb, iterations: int = 3, sigma_z: float = 1.0,
-                  sigma_n: float = 64.0, sigma_l: float = 4.0, radius_px=None):
+                  sigma_n: float = 64.0, sigma_l: float = 4.0, radius_px=None, shard=None):
     """Edge-aware A-trous wavelet chain; ``radius_px`` (H, W), optional,
-    fades out taps farther than a per-pixel radius (the REBLUR profile)."""
+    fades out taps farther than a per-pixel radius (the REBLUR profile).
+    The planes a step reads are extended together (one halo exchange a
+    step under a shard)."""
     H, W = color.shape[0], color.shape[1]
     pad = ATROUS_PAD
-    n_e = pad_edges(gb.normal, pad)
-    d_e = pad_edges(gb.depth, pad)
+    nd_e = pad_edges(torch.cat([gb.normal, gb.depth[..., None]], -1), pad, shard)
+    n_e, d_e = nd_e[..., 0:3], nd_e[..., 3]
 
     def tap(x_e, dy, dx):
         return x_e[pad + dy:pad + dy + H, pad + dx:pad + dx + W]
@@ -104,7 +108,8 @@ def atrous_filter(color, var, gb, iterations: int = 3, sigma_z: float = 1.0,
     for it in range(iterations):
         step = 1 << it
         lum_c = tm.luminance(color)
-        c_e, v_e, l_e = pad_edges(color, pad), pad_edges(var, pad), pad_edges(lum_c, pad)
+        cvl_e = pad_edges(torch.cat([color, var[..., None], lum_c[..., None]], -1), pad, shard)
+        c_e, v_e, l_e = cvl_e[..., 0:3], cvl_e[..., 3], cvl_e[..., 4]
         k0 = _KERNEL[2] * _KERNEL[2]
         acc = color * k0
         acc_w = torch.full((H, W), k0, device=color.device)
@@ -141,7 +146,8 @@ def demodulation_factor(gb):
     return torch.clamp(diff + f0, min=0.03)
 
 
-def denoise(signal, gb, state: DenoiseState, profile: str = "relax", debug_out: dict = None):
+def denoise(signal, gb, state: DenoiseState, profile: str = "relax", debug_out: dict = None,
+            shard=None):
     """Full chain: demodulate, temporal accumulation, A-trous, remodulate.
     Returns (denoised, new state). ``debug_out``: a dict that receives the
     remodulated temporal and denoised signals and the history length (the
@@ -149,12 +155,12 @@ def denoise(signal, gb, state: DenoiseState, profile: str = "relax", debug_out: 
     if profile not in ("relax", "reblur"):
         raise ValueError(f"unknown denoiser profile '{profile}'")
     mod = demodulation_factor(gb)
-    color, var, new_state = temporal_accumulate(signal / mod, gb, state)
+    color, var, new_state = temporal_accumulate(signal / mod, gb, state, shard=shard)
     radius = None
     if profile == "reblur":
         # 8 px with no history -> near-identity as the accumulation converges
         radius = torch.clamp(8.0 / (1.0 + 0.5 * new_state.history), min=0.7)
-    out = atrous_filter(color, var, gb, radius_px=radius) * mod
+    out = atrous_filter(color, var, gb, radius_px=radius, shard=shard) * mod
     if debug_out is not None:
         debug_out.update(temporal=color * mod, denoised=out, age=new_state.history)
     return out, new_state

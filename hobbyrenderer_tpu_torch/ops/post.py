@@ -1,5 +1,7 @@
-"""HDR post: luminance histogram, auto-exposure, bloom, tonemap
-(counterpart of hobbyrenderer_tpu/ops/post.py; not the sharded bloom)."""
+"""HDR post: luminance histogram, auto-exposure, bloom (whole frame, or
+banded over a rank's rows: ``bloom_sharded``), tonemap (counterpart of
+hobbyrenderer_tpu/ops/post.py). A row band's histogram is summed over the
+ranks by the caller (parallel/mesh.py::Mesh.psum_int)."""
 
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from hobbyrenderer_tpu_torch.ops.resize import resize_bilinear
+from hobbyrenderer_tpu_torch.ops.shard_utils import extend_rows
 from hobbyrenderer_tpu_torch.utils import tmath as tm
 
 HIST_BINS = 256
@@ -50,16 +53,20 @@ def downsample2(x):
     return F.avg_pool2d(x.permute(2, 0, 1)[None], 2, 2)[0].permute(1, 2, 0)
 
 
-def bloom(hdr, settings):
-    """Dual-pyramid bloom: knee prefilter, 6-mip downsample chain, radius-
-    weighted upsample accumulation, additive composite."""
+def _bloom_prefilter(hdr, settings):
     thr = settings.bloom_threshold
     knee = max(settings.bloom_knee * thr, 1e-4)
     lum = tm.luminance(hdr)[..., None]
     soft = torch.clamp(lum - thr + knee, 0.0, 2.0 * knee)
     soft = soft * soft / (4.0 * knee)
     weight = torch.maximum(lum - thr, soft) / torch.clamp(lum, min=1e-4)
-    pre = hdr * weight
+    return hdr * weight
+
+
+def bloom(hdr, settings):
+    """Dual-pyramid bloom: knee prefilter, 6-mip downsample chain, radius-
+    weighted upsample accumulation, additive composite."""
+    pre = _bloom_prefilter(hdr, settings)
     chain = [pre]
     x = pre
     for _ in range(BLOOM_MIPS):
@@ -75,6 +82,56 @@ def bloom(hdr, settings):
     for lvl in range(len(chain) - 2, -1, -1):
         up = resize_bilinear(acc, chain[lvl].shape[0], chain[lvl].shape[1])
         acc = chain[lvl] + up * settings.bloom_radius
+    return hdr + acc * settings.bloom_intensity
+
+
+def bloom_sharded(hdr, settings, shard, full_h: int):
+    """bloom() on a rank's row band (``shard``): the downsample chain and
+    the upsample accumulation run on the band, one halo row a level crossing
+    to each neighbour. The chain goes down while a level's 2x2 blocks nest
+    inside the band (its band height even) and bloom()'s own stop (height
+    and width >= 4) holds for the whole frame, as the JAX package's
+    bloom_sharded does: at a band height with fewer factors of 2 than
+    bloom() takes levels (544 rows = 32 * 17 at 1088 on 2 ranks) the
+    pyramid stops that many levels short of bloom(). The 2x bilinear
+    upsample of a band is the half-pixel kernel out[2i] = 0.25 in[i-1] +
+    0.75 in[i], out[2i+1] = 0.75 in[i] + 0.25 in[i+1], with in[] clamped at
+    the frame's edges (where extend_rows leaves zeros)."""
+    h_band, W = hdr.shape[0], hdr.shape[1]
+    lvl_band, hb, hg, wg = 0, h_band, full_h, W
+    while lvl_band < BLOOM_MIPS and hb % 2 == 0 and hg >= 4 and wg >= 4:
+        lvl_band, hb = lvl_band + 1, hb // 2
+        hg, wg = (hg + hg % 2) // 2, (wg + wg % 2) // 2
+    is_top = shard.y0 == 0
+    is_bot = shard.y0 + h_band == full_h
+
+    chain = [_bloom_prefilter(hdr, settings)]
+    x = chain[0]
+    for _ in range(lvl_band):
+        if x.shape[1] % 2:
+            x = torch.cat([x, x[:, -1:]], 1)
+        x = downsample2(x)
+        chain.append(x)
+
+    def up2_rows(xb, out_w):
+        ext = extend_rows(xb, 1, shard)
+        top = xb[:1] if is_top else ext[:1]
+        bot = xb[-1:] if is_bot else ext[-1:]
+        a = torch.cat([top, ext[1:-2]], 0)
+        b = ext[1:-1]
+        c = torch.cat([ext[2:-1], bot], 0)
+        h2 = xb.shape[0] * 2
+        rows = torch.stack([0.25 * a + 0.75 * b, 0.75 * b + 0.25 * c], 1).reshape(
+            h2, *xb.shape[1:])
+        ew = torch.cat([rows[:, :1], rows, rows[:, -1:]], 1)
+        aw, bw, cw = ew[:, :-2], ew[:, 1:-1], ew[:, 2:]
+        cols = torch.stack([0.25 * aw + 0.75 * bw, 0.75 * bw + 0.25 * cw], 2).reshape(
+            h2, rows.shape[1] * 2, *xb.shape[2:])
+        return cols[:, :out_w]
+
+    acc = chain[-1]
+    for lvl in range(len(chain) - 2, -1, -1):
+        acc = chain[lvl] + up2_rows(acc, chain[lvl].shape[1]) * settings.bloom_radius
     return hdr + acc * settings.bloom_intensity
 
 

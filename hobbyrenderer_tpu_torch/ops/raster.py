@@ -119,29 +119,34 @@ def build_raster_aux(gpu, slots, slot_valid, screen, zndc, w, ml, p_world,
 
 
 def build_worklist(screen, vert_ok, slot_valid, width, height, capacity: int,
-                   sub_count, n_sub: int):
+                   sub_count, n_sub: int, ty0: int = 0, ty_count: int = None):
     """Meshlet screen AABB -> flat tile-sorted (tile, chunk-slot) worklist.
 
     sub_count (C,) in [1, n_sub]: live 32-triangle chunks per slot; item ids
-    are slot * n_sub + chunk. Returns (work_tile, work_slot) int32 (Wcap,)
-    sorted stably by tile (sentinel tile T for padding), the clamped count
-    and the overflow (items dropped past capacity)."""
+    are slot * n_sub + chunk. ``ty0`` / ``ty_count`` bin only a band of tile
+    rows (a rank's band of the framebuffer); tile ids are then band-local.
+    Returns (work_tile, work_slot) int32 (Wcap,) sorted stably by tile
+    (sentinel tile T for padding), the clamped count and the overflow (items
+    dropped past capacity)."""
     dev = screen.device
     big = 1e9
     mn = torch.amin(torch.where(vert_ok[..., None], screen, big), dim=1)
     mx = torch.amax(torch.where(vert_ok[..., None], screen, -big), dim=1)
     any_vert = vert_ok.any(1) & slot_valid
     tx = -(-width // TILE)
-    ty = -(-height // TILE)
-    hi = torch.tensor([tx - 1, ty - 1], device=dev)
+    ty_full = -(-height // TILE)
+    ty = ty_full if ty_count is None else ty_count
+    hi = torch.tensor([tx - 1, ty_full - 1], device=dev)
     t0 = torch.minimum(torch.clamp(torch.floor(mn / TILE).to(torch.int64), min=0), hi)
     t1 = torch.minimum(torch.clamp(torch.floor(mx / TILE).to(torch.int64), min=0), hi)
     on_screen = (mx[:, 0] >= 0) & (mx[:, 1] >= 0) & (mn[:, 0] < width) & (mn[:, 1] < height)
-    ok = any_vert & on_screen
+    in_band = (t1[:, 1] >= ty0) & (t0[:, 1] <= ty0 + ty - 1)
+    ok = any_vert & on_screen & in_band
     C_ = screen.shape[0]
     T = tx * ty
     bx0, bx1 = t0[:, 0], t1[:, 0]
-    by0, by1 = t0[:, 1], t1[:, 1]
+    by0 = torch.clamp(t0[:, 1] - ty0, 0, ty - 1)
+    by1 = torch.clamp(t1[:, 1] - ty0, 0, ty - 1)
     nx = bx1 - bx0 + 1
     nyc = by1 - by0 + 1
     sub = torch.clamp(sub_count, 1, n_sub)
@@ -194,11 +199,19 @@ def _tri_affine_coeffs(tv, tz, inv_a2, tok):
                         tok.to(torch.float32)], -1)
 
 
-def rasterize(gpu, vc, slots, width: int, height: int):
+def rasterize(gpu, vc, slots, width: int, height: int, y0: int = 0,
+              shard_height: int = None):
     """Rasterize visible meshlet slots (C,) int64 (-1 padded) into a
-    visibility buffer with fused attribute resolve.
+    visibility buffer with fused attribute resolve. ``y0`` / ``shard_height``
+    rasterize only the frame rows [y0, y0 + shard_height) (a rank's band; y0
+    a multiple of TILE): K1 takes the band's first tile row, so the band's
+    rows are the whole frame's bit for bit.
 
-    Returns (RasterOutput, attr image (H, W, 16))."""
+    Returns (RasterOutput, attr image (shard_height, W, 16))."""
+    if shard_height is None:
+        shard_height = height
+    if y0 % TILE:
+        raise ValueError(f"a band starts at a multiple of {TILE} rows, not {y0}")
     C = slots.shape[0]
     worklist_capacity = max(8 * C, 4096)
     slot_valid = slots >= 0
@@ -224,7 +237,8 @@ def rasterize(gpu, vc, slots, width: int, height: int):
     inv_a2 = torch.where(nondegen, 1.0 / area2, 0.0)
 
     tx = -(-width // TILE)
-    ty = -(-height // TILE)
+    ty0 = y0 // TILE
+    ty = -(-shard_height // TILE)
     T = tx * ty
     coeff = _tri_affine_coeffs(tv, tz, inv_a2, tok)
 
@@ -234,18 +248,18 @@ def rasterize(gpu, vc, slots, width: int, height: int):
                               1, rk.N_CHUNKS)
     work_tile, work_slot, _count, overflow = build_worklist(
         screen, vert_ok, slot_valid, width, height, 2 * worklist_capacity,
-        sub_count=slot_chunks, n_sub=rk.N_CHUNKS)
+        sub_count=slot_chunks, n_sub=rk.N_CHUNKS, ty0=ty0, ty_count=ty)
     records = rk.build_full_records(coeff, aux.tri_screen, aux.tri_attr)
     records = records.reshape(-1, rk.TRI_CHUNK, records.shape[-1])
     depth_t, vis_t, attr_t = rk.raster_resolve_tiles(
-        records, work_tile, work_slot, tiles=T, tx=tx)
+        records, work_tile, work_slot, tiles=T, tx=tx, ty0=ty0)
     attr_img = (attr_t.reshape(ty, tx, rk.ATTR_ROWS, TILE, TILE)
                 .permute(0, 3, 1, 4, 2).reshape(Hp, Wp, rk.ATTR_ROWS)
-                [:height, :width])
+                [:shard_height, :width])
     depth_img = depth_t.reshape(ty, tx, TILE, TILE).permute(0, 2, 1, 3).reshape(Hp, Wp)
     vis_img = vis_t.reshape(ty, tx, TILE, TILE).permute(0, 2, 1, 3).reshape(Hp, Wp)
-    out = RasterOutput(depth_img[:height, :width],
-                       vis_img[:height, :width].to(torch.int64), overflow)
+    out = RasterOutput(depth_img[:shard_height, :width],
+                       vis_img[:shard_height, :width].to(torch.int64), overflow)
     return out, attr_img
 
 
@@ -312,10 +326,12 @@ def rasterize_shadow_atlas(gpu, vps, slots, res: int):
 
 
 def resolve_gbuffer(gpu, vc, raster: RasterOutput, attr_img, pix_ids=None,
-                    want_feedback: bool = False, want_tex_debug: bool = False):
+                    want_feedback: bool = False, want_tex_debug: bool = False, y0: int = 0):
     """Per-pixel G-buffer from the kernel's interpolated attributes (H, W, 16):
     material constants, stochastic-trilinear texturing, normal mapping and
-    motion vectors. ``pix_ids`` (H, W) global pixel ids let a caller resolve
+    motion vectors; ``y0``: the frame row of a band's first row (its pixel
+    ids, which key the texture RNG, are global). ``pix_ids`` (H, W) global
+    pixel ids let a caller resolve
     a compacted lane list: texture LOD then comes from the distance cone (no
     screen derivatives across lanes) and normal maps are skipped.
 
@@ -365,7 +381,7 @@ def resolve_gbuffer(gpu, vc, raster: RasterOutput, attr_img, pix_ids=None,
             pix = pix_ids.to(torch.int64)
         else:
             lod = texops.uv_lod(uv_s, tex_size)
-            pix = torch.arange(H * W, dtype=torch.int64, device=dev).reshape(H, W)
+            pix = torch.arange(H * W, dtype=torch.int64, device=dev).reshape(H, W) + y0 * W
         key = pcg3d(torch.stack([pix, torch.full_like(pix, vc["frame_index"]),
                                  torch.full_like(pix, 311)], -1))
         if stream is not None:

@@ -197,8 +197,11 @@ def _launch(fn, records, work_tile, work_slot, tiles, outs, extra):
     kernels.check(err, fn)
 
 
-def raster_resolve_tiles(records, work_tile, work_slot, *, tiles: int, tx: int):
-    """Fused raster + attribute resolve over a tile-sorted worklist.
+def raster_resolve_tiles(records, work_tile, work_slot, *, tiles: int, tx: int,
+                         ty0: int = 0):
+    """Fused raster + attribute resolve over a tile-sorted worklist. Tile t
+    covers frame pixel rows (t // tx + ty0) * 32 + [0, 32): ``ty0`` is a row
+    band's first tile row.
 
     records (S, 32, 128) f32; work_tile, work_slot (Wcap,) int32 (padding:
     tile == tiles, slot == -1). Returns depth (T, 1024) f32, visid (T, 1024)
@@ -207,12 +210,12 @@ def raster_resolve_tiles(records, work_tile, work_slot, *, tiles: int, tx: int):
     material id, 12:15 geometric normal (unnormalized), 15 zero."""
     if records.device.type == "cpu":
         return raster_resolve_tiles_reference(records, work_tile, work_slot,
-                                              tiles=tiles, tx=tx)
+                                              tiles=tiles, tx=tx, ty0=ty0)
     return _raster_resolve_tiles_cuda(records, work_tile, work_slot,
-                                      tiles=tiles, tx=tx)
+                                      tiles=tiles, tx=tx, ty0=ty0)
 
 
-def _raster_resolve_tiles_cuda(records, work_tile, work_slot, *, tiles, tx):
+def _raster_resolve_tiles_cuda(records, work_tile, work_slot, *, tiles, tx, ty0):
     global launches
     S = records.shape[0]
     kernels.require(records, "records", torch.float32, (S, TRI_CHUNK, REC_LANES))
@@ -223,7 +226,7 @@ def _raster_resolve_tiles_cuda(records, work_tile, work_slot, *, tiles, tx):
     visid = torch.empty((tiles, PIX), dtype=torch.int32, device=dev)
     attrs = torch.empty((tiles, ATTR_ROWS, PIX), dtype=torch.float32, device=dev)
     _launch("hr_raster_resolve_tiles", records, work_tile, work_slot, tiles,
-            (depth, visid, attrs), (tx,))
+            (depth, visid, attrs), (tx, int(ty0)))
     launches += 1
     return depth, visid, attrs
 
@@ -237,12 +240,13 @@ def _plane_eval(A, oxf, oyf, xl, yl, k):
 
 
 def raster_resolve_tiles_reference(records, work_tile, work_slot, *, tiles: int,
-                                   tx: int):
+                                   tx: int, ty0: int = 0):
     """Plain PyTorch version of the kernel (any device): loop 1 (max depth
     and winner id under the kernel's tie rules) is K5's plain version, loop
     2 evaluates the winner's attribute planes per pixel."""
     dev = records.device
-    depth, visid = raster_tiles_reference(records, work_tile, work_slot, tiles=tiles, tx=tx)
+    depth, visid = raster_tiles_reference(records, work_tile, work_slot, tiles=tiles, tx=tx,
+                                          ty0=ty0)
     p_in = torch.arange(PIX, device=dev)
     # loop 2: each pixel's winner row, 16 perspective-correct planes
     flat = records.reshape(-1, records.shape[-1])
@@ -254,7 +258,7 @@ def raster_resolve_tiles_reference(records, work_tile, work_slot, *, tiles: int,
     pxg = ((p_of % TILE).to(torch.float32)
            + ((t_of % tx) * TILE).to(torch.float32) + 0.5)[:, None]
     pyg = ((p_of // TILE).to(torch.float32)
-           + ((t_of // tx) * TILE).to(torch.float32) + 0.5)[:, None]
+           + ((t_of // tx + ty0) * TILE).to(torch.float32) + 0.5)[:, None]
     vals = cof[:, 0:16] * pxg + cof[:, 16:32] * pyg + cof[:, 32:48]
     inv_w = 1.0 / torch.clamp(vals[:, 11:12], min=1e-12)
     out = torch.cat([vals[:, 0:11] * inv_w, vals[:, 12:16],
@@ -264,9 +268,10 @@ def raster_resolve_tiles_reference(records, work_tile, work_slot, *, tiles: int,
     return depth, visid, attrs
 
 
-def raster_tiles(records, work_tile, work_slot, *, tiles: int, tx: int,
+def raster_tiles(records, work_tile, work_slot, *, tiles: int, tx: int, ty0: int = 0,
                  depth_only: bool = False):
-    """Tile raster without attributes over a tile-sorted worklist (K5).
+    """Tile raster without attributes over a tile-sorted worklist (K5);
+    ``ty0`` as in raster_resolve_tiles.
 
     records (S, 32, lanes >= 9) f32, only lanes 0:9 read; work_tile,
     work_slot (Wcap,) int32 (padding: tile == tiles). Returns depth (T, 1024)
@@ -274,12 +279,12 @@ def raster_tiles(records, work_tile, work_slot, *, tiles: int, tx: int,
     ``depth_only``)."""
     if records.device.type == "cpu":
         return raster_tiles_reference(records, work_tile, work_slot, tiles=tiles,
-                                      tx=tx, depth_only=depth_only)
-    return _raster_tiles_cuda(records, work_tile, work_slot, tiles=tiles, tx=tx,
+                                      tx=tx, ty0=ty0, depth_only=depth_only)
+    return _raster_tiles_cuda(records, work_tile, work_slot, tiles=tiles, tx=tx, ty0=ty0,
                               depth_only=depth_only)
 
 
-def _raster_tiles_cuda(records, work_tile, work_slot, *, tiles, tx, depth_only):
+def _raster_tiles_cuda(records, work_tile, work_slot, *, tiles, tx, ty0, depth_only):
     global tiles_launches
     S, _, lanes = records.shape
     if lanes < 12 or lanes % 4:
@@ -291,7 +296,7 @@ def _raster_tiles_cuda(records, work_tile, work_slot, *, tiles, tx, depth_only):
     depth = torch.empty((tiles, PIX), dtype=torch.float32, device=dev)
     visid = torch.empty((tiles, PIX), dtype=torch.int32, device=dev)
     _launch("hr_raster_tiles", records, work_tile, work_slot, tiles,
-            (depth, visid), (tx, lanes, int(bool(depth_only))))
+            (depth, visid), (tx, int(ty0), lanes, int(bool(depth_only))))
     tiles_launches += 1
     return depth, visid
 
@@ -351,7 +356,7 @@ def _rows_outside_strips(A, oxf, oyf):
 
 
 def raster_tiles_reference(records, work_tile, work_slot, *, tiles: int, tx: int,
-                           depth_only: bool = False):
+                           ty0: int = 0, depth_only: bool = False):
     """Plain PyTorch version of K5 (any device). Walks the worklist in
     batches of items, whatever their tiles, so empty tiles cost nothing, and
     evaluates only the rows that can reach their tile (``_rows_outside``
@@ -375,7 +380,7 @@ def raster_tiles_reference(records, work_tile, work_slot, *, tiles: int, tx: int
         slots = work_slot[b0:b0 + m].to(torch.int64)
         A = records[slots][..., 0:9]                           # (m, 32, 9)
         oxf = ((t_b % tx) * TILE).to(torch.float32)[:, None, None] + 0.5
-        oyf = ((t_b // tx) * TILE).to(torch.float32)[:, None, None] + 0.5
+        oyf = ((t_b // tx + ty0) * TILE).to(torch.float32)[:, None, None] + 0.5
         ki, kr = torch.nonzero(~_rows_outside(A, oxf, oyf), as_tuple=True)
         Ak, oxk, oyk = A[ki, kr], oxf[ki, 0], oyf[ki, 0]       # (K, 9), (K, 1)
         l1 = _plane_eval(Ak, oxk, oyk, xl, yl, 0)              # (K, PIX)

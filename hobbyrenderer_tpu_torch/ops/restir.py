@@ -1,6 +1,6 @@
 """ReSTIR DI: reservoir-based spatiotemporal importance resampling for
 direct lighting over the polymorphic light pool (counterpart of
-hobbyrenderer_tpu/ops/restir.py, single device).
+hobbyrenderer_tpu/ops/restir.py).
 
 Per frame: candidates from power-presampled light tiles or ReGIR cells
 (ops/regir.py) through kernel K2 (ops/restir_kernel.py) -> temporal reuse
@@ -15,7 +15,11 @@ device: two tile-modal any-hit passes (K4, ops/beam.py) and the remaining
 No step of the chain reads a device value back to the host: compactions
 keep a fixed capacity (cumsum + scatter), the frame index and the spatial
 tap offsets are host numbers, and the overflow counts stay device tensors.
-Row-band sharding is not ported: halos are plain edge padding."""
+On a rank's row band (``shard``, ops/shard_utils) every RNG key is the
+global pixel id, K2 takes the band's first row, the temporal and spatial
+taps and the boiling filter's window reach the neighbouring bands through
+halo rows, and the visibility capacities are the band's own (as the JAX
+package computes them)."""
 
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from hobbyrenderer_tpu_torch.ops import restir_kernel as rkops
 from hobbyrenderer_tpu_torch.ops import sampling as smp
 from hobbyrenderer_tpu_torch.ops import shading as shadeops
 from hobbyrenderer_tpu_torch.ops.intersect import retarget_shadow_ray
+from hobbyrenderer_tpu_torch.ops.shard_utils import extend_rows, full_height, global_y0
 from hobbyrenderer_tpu_torch.ops.warp import pad_edges, warp_image
 from hobbyrenderer_tpu_torch.scene.scene import LIGHT_DIRECTIONAL
 from hobbyrenderer_tpu_torch.utils import tmath as tm
@@ -103,13 +108,23 @@ def _box_sum(x, r: int):
     return s.to(torch.float32)
 
 
-def boiling_filter_mask(w_sum_2d, live_2d, mult: float = 20.0, radius: int = 16):
+def boiling_filter_mask(w_sum_2d, live_2d, mult: float = 20.0, radius: int = 16,
+                        shard=None):
     """Boiling-filter kill mask: live reservoirs whose weight exceeds
     ``mult`` times the (2r+1)^2 windowed mean of live weights (rows and
-    columns outside the frame count zero weight and zero count)."""
+    columns outside the frame count zero weight and zero count). On a row
+    band the window's rows past the band come from the neighbours."""
     w = torch.where(live_2d, w_sum_2d, 0.0)
-    mean = _box_sum(w, radius) / torch.clamp(_box_sum(live_2d.to(torch.float32), radius),
-                                             min=1.0)
+    cnt = live_2d.to(torch.float32)
+    if shard is None or shard.n == 1:
+        mean = _box_sum(w, radius) / torch.clamp(_box_sum(cnt, radius), min=1.0)
+    else:
+        H, r = w.shape[0], radius
+        ext = extend_rows(torch.stack([w, cnt], -1), r, shard)
+        gy = torch.arange(-r, H + r, device=w.device) + shard.y0
+        ext = ext * ((gy >= 0) & (gy < shard.full_h)).to(torch.float32)[:, None, None]
+        mean = (_box_sum(ext[..., 0], r)[r:r + H]
+                / torch.clamp(_box_sum(ext[..., 1], r)[r:r + H], min=1.0))
     return live_2d & (w_sum_2d > mult * torch.clamp(mean, min=1e-20))
 
 
@@ -202,7 +217,7 @@ def restir_di(gpu, rt, gb, vc, settings, prev: Reservoir, frame_index: int,
               spatial_taps: int = SPATIAL_TAPS, boiling_mult: float = 20.0,
               regir_grid=None, stats_out: dict = None, checkerboard: bool = False,
               vis_scale: int = 1, vis_scale_min_dim: int = VIS_SCALE_MIN_DIM,
-              straggler_steps: int = STRAGGLER_STEPS):
+              straggler_steps: int = STRAGGLER_STEPS, shard=None):
     """Full ReSTIR DI chain for one frame. gb: GBuffer; prev: last frame's
     reservoir; the light pool is rt.lights, else an analytic-only pool.
 
@@ -217,12 +232,16 @@ def restir_di(gpu, rt, gb, vc, settings, prev: Reservoir, frame_index: int,
     ``regir_grid`` (an ops/regir.RegirGrid) replaces the presample tiles:
     each 128-pixel segment reads the cell that covers its centre pixel, and
     slot 16 carries the cell reservoir's W in place of 1/power_pdf.
+    ``shard``: gb and prev are a rank's row band (ops/shard_utils).
     Returns (direct (H, W, 3), Reservoir)."""
     H, W = gb.depth.shape
     R = H * W
     dev = gb.depth.device
     frame = int(frame_index)
-    pix = torch.arange(R, dtype=torch.int64, device=dev)     # RNG key gy * W + x
+    y0 = global_y0(shard)
+    full_h = full_height(shard, H)
+    # RNG key: the global pixel id gy * W + x
+    pix = torch.arange(R, dtype=torch.int64, device=dev) + y0 * W
     pool = getattr(rt, "lights", None)
     if pool is None:
         pool = _fallback_pool(gpu)
@@ -255,7 +274,7 @@ def restir_di(gpu, rt, gb, vc, settings, prev: Reservoir, frame_index: int,
         if W % 2:
             raise ValueError("checkerboard needs an even render width")
         Wc = W // 2
-        par = (torch.arange(H, device=dev) + frame) & 1          # (H,)
+        par = (torch.arange(H, device=dev) + y0 + frame) & 1     # (H,) global rows
 
         def _half(img):
             pr = par.reshape((H,) + (1,) * (img.ndim - 1))
@@ -283,7 +302,7 @@ def restir_di(gpu, rt, gb, vc, settings, prev: Reservoir, frame_index: int,
         seg_x = torch.clamp(torch.arange(nseg, device=dev) * S + S // 2, max=Wc - 1)
         tsel = regirops.cells_of_positions(regir_grid, pos_g[:, seg_x], valid_g[:, seg_x])
     else:
-        gy_img = torch.arange(H, dtype=torch.int64, device=dev)
+        gy_img = torch.arange(H, dtype=torch.int64, device=dev) + y0
         seg = torch.arange(nseg, dtype=torch.int64, device=dev)
         sbits = pcg3d(torch.stack([gy_img[:, None].expand(H, nseg),
                                    seg[None, :].expand(H, nseg),
@@ -296,7 +315,7 @@ def restir_di(gpu, rt, gb, vc, settings, prev: Reservoir, frame_index: int,
     planes = F.pad(planes, (0, Wp - Wc, 0, Hp - H)).contiguous()
     tselp = F.pad(tsel, (0, 0, 0, Hp - H)).contiguous()
     yf, uf, vf, wf, rowf = rkops.restir_candidates(
-        tile_rows.permute(0, 2, 1).contiguous(), tselp, planes, cam.contiguous(), frame, 0,
+        tile_rows.permute(0, 2, 1).contiguous(), tselp, planes, cam.contiguous(), frame, y0,
         num_candidates=num_candidates, w_log=W)
     y = torch.round(yf[:H, :Wc]).to(torch.int64).reshape(Rc)
     uv = torch.stack([uf[:H, :Wc].reshape(Rc), vf[:H, :Wc].reshape(Rc)], -1)
@@ -319,13 +338,14 @@ def restir_di(gpu, rt, gb, vc, settings, prev: Reservoir, frame_index: int,
     # ---- temporal reuse (nearest-texel reprojection) ----
     motion = gb.motion
     xs = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
-    ys = torch.arange(H, dtype=torch.float32, device=dev) + 0.5
+    ys = torch.arange(H, dtype=torch.float32, device=dev) + y0 + 0.5
     prev_x = xs[None, :] + motion[..., 0]
     prev_y = ys[:, None] + motion[..., 1]
-    on_screen = ((prev_x >= 0) & (prev_x < W) & (prev_y >= 0) & (prev_y < H)).reshape(R)
+    on_screen = ((prev_x >= 0) & (prev_x < W) & (prev_y >= 0)
+                 & (prev_y < full_h)).reshape(R)
     packed = torch.cat([prev.y.to(torch.float32)[..., None], prev.uv, prev.M[..., None],
                         prev.W[..., None]], -1)
-    pw = warp_image(packed, motion, halo=HALO, bilinear=False)
+    pw = warp_image(packed, motion, halo=HALO, bilinear=False, shard=shard)
     ty = torch.round(pw[..., 0]).to(torch.int64).reshape(R)
     tuv = pw[..., 1:3].reshape(R, 2)
     tM = torch.clamp(pw[..., 3].reshape(R), max=M_CLAMP_TEMPORAL)
@@ -342,7 +362,7 @@ def restir_di(gpu, rt, gb, vc, settings, prev: Reservoir, frame_index: int,
     # ---- boiling filter ----
     if boiling_mult > 0.0:
         kill = boiling_filter_mask(w_sum.reshape(H, W), (y >= 0).reshape(H, W),
-                                   mult=boiling_mult).reshape(R)
+                                   mult=boiling_mult, shard=shard).reshape(R)
         y = torch.where(kill, -1, y)
         w_sum = torch.where(kill, 0.0, w_sum)
 
@@ -354,7 +374,7 @@ def restir_di(gpu, rt, gb, vc, settings, prev: Reservoir, frame_index: int,
                       W_snap.reshape(H, W)[..., None], M.reshape(H, W)[..., None],
                       gb.normal, gb.depth[..., None], gb.valid.to(torch.float32)[..., None],
                       row.reshape(H, W, 16)], -1)
-    snap_e = pad_edges(snap, HALO)
+    snap_e = pad_edges(snap, HALO, shard)
     d_c = gb.depth.reshape(R)
     for k, (dx, dy) in enumerate(_tap_offsets(spatial_taps, frame)):
         nb = snap_e[HALO + dy:HALO + dy + H, HALO + dx:HALO + dx + W]
@@ -402,7 +422,7 @@ def restir_di(gpu, rt, gb, vc, settings, prev: Reservoir, frame_index: int,
         L_vis, tmax_t = retarget_shadow_ray(pos, o, L_final, dist)
         tmax = torch.where(shoot, tmax_t, 1e-4)
         vs = max(int(vis_scale), 1)
-        if vs > 1 and min(H, W) < vis_scale_min_dim:
+        if vs > 1 and min(full_h, W) < vis_scale_min_dim:
             vs = 1      # the reuse offset is a large image fraction at thumbnails
         if vs > 1:
             # reduced-rate winner visibility: trace the (::vs, ::vs) subgrid;

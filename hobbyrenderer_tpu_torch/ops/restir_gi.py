@@ -1,6 +1,6 @@
 """ReSTIR GI: reservoir-resampled one-bounce indirect light, and the
 bounce-hit shading it shares with DDGI and the traced specular pass
-(counterpart of hobbyrenderer_tpu/ops/restir_gi.py, single device).
+(counterpart of hobbyrenderer_tpu/ops/restir_gi.py).
 
 Per GI pixel (a 1/scale grid) and frame: one cosine bounce ray through
 ``closest_hit_auto`` (the bvh16 walk K3) gives a sample point whose outgoing
@@ -14,7 +14,8 @@ normal guidance and remodulated by the albedo.
 
 ``half_rate`` traces new bounce rays on even frames only; the frame index is
 a host number, so the branch costs no sync. No step of the chain reads a
-device value back to the host."""
+device value back to the host. On a rank's row band (``shard``) the GI grid
+is banded with it: global GI-pixel RNG keys, halo'd reuse and upsample."""
 
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from hobbyrenderer_tpu_torch.ops import trace as traceops
 from hobbyrenderer_tpu_torch.ops.ibl import sample_irradiance
 from hobbyrenderer_tpu_torch.ops.intersect import offset_ray_origin, retarget_shadow_ray
 from hobbyrenderer_tpu_torch.ops.restir import _rand, _tap_offsets
+from hobbyrenderer_tpu_torch.ops.shard_utils import full_height, global_y0, sub_shard
 from hobbyrenderer_tpu_torch.ops.upsample import joint_bilateral_upsample
 from hobbyrenderer_tpu_torch.ops.warp import pad_edges, warp_image
 from hobbyrenderer_tpu_torch.scene.gpu import (MAT_BASE_COLOR, MAT_EMISSIVE, MAT_METALLIC,
@@ -155,16 +157,17 @@ def restir_gi(gpu, rt, gb, vc, settings, prev: GIReservoir, frame_index: int,
     K4 walks per ray), ``traced`` (1 if this frame traced, host int),
     ``bounce_lanes`` / ``bounce_capped`` (K3 lanes of the bounce walk and
     those that spent its whole budget), ``nee_lanes`` / ``nee_capped`` (the
-    NEE walk's)."""
-    if shard is not None:
-        raise NotImplementedError("row-band sharding is not ported yet: "
-                                  "ROADMAP Queue 1 item 10 (multi-GPU)")
+    NEE walk's). ``shard``: gb and prev are a rank's row band (the
+    full-res band; shard_h % scale == 0)."""
     H, W = gb.depth.shape
     Hg, Wg = H // scale, W // scale
     R = Hg * Wg
     dev = gb.depth.device
     frame = int(frame_index)
-    pix = torch.arange(R, dtype=torch.int64, device=dev)     # RNG key gy * Wg + x
+    gshard = sub_shard(shard, scale, Hg)
+    gy0 = global_y0(gshard)
+    # RNG key: the global GI-pixel id gy * Wg + x
+    pix = torch.arange(R, dtype=torch.int64, device=dev) + gy0 * Wg
     if pool is None:
         pool = getattr(rt, "lights", None)
     assert pool is not None, "ReSTIR GI needs rt.lights"
@@ -208,12 +211,14 @@ def restir_gi(gpu, rt, gb, vc, settings, prev: GIReservoir, frame_index: int,
     # ---- temporal reuse with the reconnection Jacobian ----
     motion = sub(gb.motion) / float(scale)
     xs = torch.arange(Wg, dtype=torch.float32, device=dev) + 0.5
-    ys = torch.arange(Hg, dtype=torch.float32, device=dev) + 0.5
+    ys = torch.arange(Hg, dtype=torch.float32, device=dev) + gy0 + 0.5
     prev_x = xs[None, :] + motion[..., 0]
     prev_y = ys[:, None] + motion[..., 1]
-    on_s = ((prev_x >= 0) & (prev_x < Wg) & (prev_y >= 0) & (prev_y < Hg)).reshape(R)
+    on_s = ((prev_x >= 0) & (prev_x < Wg) & (prev_y >= 0)
+            & (prev_y < full_height(gshard, Hg))).reshape(R)
     packed = torch.cat([prev.pos, prev.nrm, prev.rad, prev.W[..., None], prev.M[..., None]], -1)
-    pw = warp_image(packed, motion, halo=GI_HALO, radius=4, col_pad=32, bilinear=False)
+    pw = warp_image(packed, motion, halo=GI_HALO, radius=4, col_pad=32, bilinear=False,
+                    shard=gshard)
     t_pos = pw[..., 0:3].reshape(R, 3)
     t_nrm = pw[..., 3:6].reshape(R, 3)
     t_rad = pw[..., 6:9].reshape(R, 3)
@@ -235,7 +240,7 @@ def restir_gi(gpu, rt, gb, vc, settings, prev: GIReservoir, frame_index: int,
                       M.reshape(Hg, Wg)[..., None], n.reshape(Hg, Wg, 3), d2v[..., None],
                       pos.reshape(Hg, Wg, 3)], -1)
     hl = GI_HALO
-    snap_e = pad_edges(snap, hl)
+    snap_e = pad_edges(snap, hl, gshard)
     d_c = d2v.reshape(R)
     for k, (dx, dy) in enumerate(_tap_offsets(spatial_taps, frame, salt=GI_TAP_SALT,
                                               radius=GI_SPATIAL_RADIUS)):
@@ -283,7 +288,8 @@ def restir_gi(gpu, rt, gb, vc, settings, prev: GIReservoir, frame_index: int,
                           rad=y_rad.reshape(Hg, Wg, 3), w_sum=w_sum.reshape(Hg, Wg),
                           M=M.reshape(Hg, Wg), W=Wgt.reshape(Hg, Wg))
     full_irr = joint_bilateral_upsample(irr.reshape(Hg, Wg, 3), d2v, n.reshape(Hg, Wg, 3),
-                                        valid.reshape(Hg, Wg), gb.depth, gb.normal, scale)
+                                        valid.reshape(Hg, Wg), gb.depth, gb.normal, scale,
+                                        shard=shard)
     full = torch.where(gb.valid[..., None], gb.albedo * full_irr, 0.0)
     if stats_out is not None:
         stats_out.update(so)

@@ -48,14 +48,18 @@ def sky_radiance_fast(d, sun_dir, settings, with_sun_disk: bool = True):
     return L
 
 
-def view_dirs_from_pixels(vc, height: int, width: int):
-    """Per-pixel world-space view direction through each pixel centre."""
+def view_dirs_from_pixels(vc, height: int, width: int, y0: int = 0,
+                          full_height: int = None):
+    """Per-pixel world-space view direction through each pixel centre. A row
+    band passes ``y0`` and ``full_height``: its rows are frame rows
+    [y0, y0 + height) of a full_height-tall frame."""
+    fh = height if full_height is None else full_height
     dev = vc["inv_view_proj"].device
     xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
-    ys = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
+    ys = torch.arange(height, dtype=torch.float32, device=dev) + y0 + 0.5
     py, px = torch.meshgrid(ys, xs, indexing="ij")
     ndc_x = px / width * 2.0 - 1.0
-    ndc_y = 1.0 - py / height * 2.0
+    ndc_y = 1.0 - py / fh * 2.0
     inv = vc["inv_view_proj"]
     p = torch.stack([ndc_x, ndc_y, torch.full_like(ndc_x, 0.5)], -1)
     w = p @ inv[3, :3] + inv[3, 3]

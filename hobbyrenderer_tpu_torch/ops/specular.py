@@ -1,5 +1,5 @@
 """Traced specular indirect: GGX-VNDF reflection rays for glossy pixels
-(counterpart of hobbyrenderer_tpu/ops/specular.py, single device).
+(counterpart of hobbyrenderer_tpu/ops/specular.py).
 
 At half resolution, one VNDF half-vector sample per glossy pixel (roughness
 below ``rough_max``) and frame; mirror-like pixels (roughness below
@@ -13,7 +13,10 @@ environment map, else the sky; nothing with ``include_env_miss`` off); lanes
 past the capacity read it too. The
 demodulated signal goes through the RELAX temporal pass and a short
 roughness-aware A-trous, is upsampled, remodulated, and returned weighted by
-the blend that hands over to the split-sum ambient at higher roughness."""
+the blend that hands over to the split-sum ambient at higher roughness.
+On a rank's row band (``shard``) the spec grid is banded with it: global
+RNG keys and checkerboard parity, halo'd denoise and upsample, and the
+band's own capacity."""
 
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from hobbyrenderer_tpu_torch.ops.intersect import offset_ray_origin
 from hobbyrenderer_tpu_torch.ops.restir import _compact
 from hobbyrenderer_tpu_torch.ops.restir_gi import _hit_radiance
 from hobbyrenderer_tpu_torch.ops.shading import brdf_params, fresnel_schlick
+from hobbyrenderer_tpu_torch.ops.shard_utils import global_y0, sub_shard
 from hobbyrenderer_tpu_torch.ops.upsample import joint_bilateral_upsample
 from hobbyrenderer_tpu_torch.utils import tmath as tm
 from hobbyrenderer_tpu_torch.utils.rng import pcg3d, uniform_from_bits
@@ -73,15 +77,13 @@ def specular_indirect(gpu, rt, gb, vc, settings, state: DenoiseState, frame_inde
     keep it. ``stats_out`` gets device scalars: ``lanes`` / ``capped`` (the
     reflection walk's K3 lanes and those that spent its budget),
     ``nee_lanes`` / ``nee_capped``, and ``past_cap`` (active lanes past the
-    capacity)."""
-    if shard is not None:
-        raise NotImplementedError("row-band sharding is not ported yet: "
-                                  "ROADMAP Queue 1 item 10 (multi-GPU)")
+    capacity). ``shard``: a rank's row band (shard_h % scale == 0)."""
     H, W = gb.depth.shape
     Hs, Ws = H // scale, W // scale
     R = Hs * Ws
     dev = gb.depth.device
     frame = int(frame_index)
+    gshard = sub_shard(shard, scale, Hs)
 
     def sub(img):
         return img[::scale, ::scale][:Hs, :Ws]
@@ -94,7 +96,7 @@ def specular_indirect(gpu, rt, gb, vc, settings, state: DenoiseState, frame_inde
     metal = sub(gb.orm[..., 2]).reshape(R)
     albedo = sub(gb.albedo).reshape(R, 3)
     lanes = torch.arange(R, dtype=torch.int64, device=dev)
-    ly, gx = lanes // Ws, lanes % Ws
+    ly, gx = lanes // Ws + global_y0(gshard), lanes % Ws     # global spec-grid rows
     pix = ly * Ws + gx
 
     v = tm.normalize(vc["camera_pos"][None, :] - pos)
@@ -177,13 +179,14 @@ def specular_indirect(gpu, rt, gb, vc, settings, state: DenoiseState, frame_inde
                  normal=sub(gb.normal), valid=sub(gb.valid))
     sv = parity.reshape(Hs, Ws) if half_rate else None
     color, var, new_state = temporal_accumulate(spec, sgb, state, max_history=8.0,
-                                                sample_valid=sv)
+                                                sample_valid=sv, shard=gshard)
     r_px = (4.0 * torch.clamp(sub(gb.orm[..., 1]) / rough_max, 0.05, 1.0)
             * 8.0 / (1.0 + new_state.history))
-    color = atrous_filter(color, var, sgb, iterations=2, radius_px=torch.clamp(r_px, min=0.5))
+    color = atrous_filter(color, var, sgb, iterations=2, radius_px=torch.clamp(r_px, min=0.5),
+                          shard=gshard)
 
     full = joint_bilateral_upsample(color, sgb.depth, sgb.normal, sgb.valid, gb.depth,
-                                    gb.normal, scale)
+                                    gb.normal, scale, shard=shard)
     _, f0_full, _ = brdf_params(gb.albedo, gb.orm[..., 2], gb.orm[..., 1])
     full = full * (f0_full + 0.02)
     w_blend = spec_blend_weight(gb.orm[..., 1], rough_max) * gb.valid.to(torch.float32)

@@ -1,6 +1,6 @@
 """Temporal anti-aliasing at native resolution and TAA upscaling
-(counterpart of hobbyrenderer_tpu/ops/taa.py: taa_resolve and
-taau_resolve, single device)."""
+(counterpart of hobbyrenderer_tpu/ops/taa.py: taa_resolve, which also runs
+on a rank's row band, and taau_resolve, one device)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hobbyrenderer_tpu_torch.ops.warp import extend_rows, warp_image
+from hobbyrenderer_tpu_torch.ops.shard_utils import extend_rows, full_height, global_y0
+from hobbyrenderer_tpu_torch.ops.warp import warp_image
 
 HISTORY_HALO = 32
 
@@ -31,30 +32,32 @@ def _neighborhood_minmax(c_e, H):
     return mn, mx
 
 
-def taa_resolve(hdr, history, motion, valid_history: bool, settings):
-    """One TAA step; returns the resolved frame (also the new history)."""
+def taa_resolve(hdr, history, motion, valid_history: bool, settings, shard=None):
+    """One TAA step; returns the resolved frame (also the new history).
+    ``shard``: hdr, history and motion are a rank's row band."""
     H, W = hdr.shape[0], hdr.shape[1]
     dev = hdr.device
-    ys = torch.arange(H, dtype=torch.float32, device=dev) + 0.5
+    ys = torch.arange(H, dtype=torch.float32, device=dev) + global_y0(shard) + 0.5
     xs = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
     py, px = torch.meshgrid(ys, xs, indexing="ij")
     prev_x = px + motion[..., 0]
     prev_y = py + motion[..., 1]
-    hist = warp_image(history, motion, halo=HISTORY_HALO)
-    mn, mx = _neighborhood_minmax(extend_rows(hdr, 1), H)
+    hist = warp_image(history, motion, halo=HISTORY_HALO, shard=shard)
+    mn, mx = _neighborhood_minmax(extend_rows(hdr, 1, shard), H)
     hist = torch.minimum(torch.maximum(hist, mn), mx)
-    on_screen = (prev_x >= 0) & (prev_x < W) & (prev_y >= 0) & (prev_y < H)
+    on_screen = ((prev_x >= 0) & (prev_x < W) & (prev_y >= 0)
+                 & (prev_y < full_height(shard, H)))
     if valid_history:
         alpha = torch.where(on_screen[..., None], settings.taa_blend, 1.0)
     else:
         alpha = torch.ones_like(hdr[..., :1])
-    return _sharpen(hist + (hdr - hist) * alpha, settings)
+    return _sharpen(hist + (hdr - hist) * alpha, settings, shard)
 
 
-def _sharpen(out, settings):
+def _sharpen(out, settings, shard=None):
     """out + (out - 3x3 box) * sharpness, clamped at 0; the box has
     zero-padded columns over the row-extended frame."""
-    blur = _hwc(F.avg_pool2d(_chw(extend_rows(out, 1)), 3, 1, padding=1,
+    blur = _hwc(F.avg_pool2d(_chw(extend_rows(out, 1, shard)), 3, 1, padding=1,
                              count_include_pad=True))[1:1 + out.shape[0]]
     return torch.clamp(out + (out - blur) * settings.sharpness, min=0.0)
 

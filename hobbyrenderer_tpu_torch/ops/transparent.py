@@ -1,8 +1,10 @@
 """Forward transparency over the lit opaque frame (counterpart of
-hobbyrenderer_tpu/ops/transparent.py on one device): the alpha-BLEND
-meshlets split into far/near camera-distance bins, each rasterized,
-resolved and shaded on lanes compacted off its visibility buffer, and
-composited far-first."""
+hobbyrenderer_tpu/ops/transparent.py): the alpha-BLEND meshlets split into
+far/near camera-distance bins, each rasterized, resolved and shaded on
+lanes compacted off its visibility buffer, and composited far-first. On a
+rank's row band the raster, resolve and shading run on the band, and the
+refraction samples the gathered opaque frame (a refracted exit may land in
+another band)."""
 
 from __future__ import annotations
 
@@ -20,15 +22,21 @@ from hobbyrenderer_tpu_torch.scene.gpu import (MAT_ATTEN_COLOR, MAT_ATTEN_DIST,
 
 def transparent_composite(gpu, vc, settings, gb, hdr, *, width, height,
                           transparent_capacity, sun_dir, sky_sh, env_as_lights: bool = False,
-                          env_fn=None, ibl_scale=1.0):
+                          env_fn=None, ibl_scale=1.0, y0: int = 0, shard_h: int = None,
+                          hdr_full=None):
     """Render the scene's alpha-BLEND geometry over hdr; returns new hdr.
     ``env_fn`` (directions -> radiance): the environment map, for the
     ambient's reflections and refracted rays that leave the screen (else
     the procedural sky); ``env_as_lights``: the environment rides the light
-    list, so the ambient term is dropped."""
+    list, so the ambient term is dropped. A row band passes ``y0`` and
+    ``shard_h`` (gb and hdr are frame rows [y0, y0 + shard_h)) and the
+    gathered opaque frame ``hdr_full`` for the refraction."""
     dev = hdr.device
+    shard_h = height if shard_h is None else shard_h
+    if hdr_full is None:
+        hdr_full = hdr
     cull = cullops.cull_pairs(gpu, vc, alpha_mask=(False, False, True))
-    vdir = skyops.view_dirs_from_pixels(vc, height, width)
+    vdir = skyops.view_dirs_from_pixels(vc, shard_h, width, y0=y0, full_height=height)
     v = -vdir
 
     def miss_env(d):
@@ -36,13 +44,14 @@ def transparent_composite(gpu, vc, settings, gb, hdr, *, width, height,
             return env_fn(d)
         return skyops.sky_radiance_fast(d, sun_dir, settings)
 
-    stack = refrops.build_level_stack(hdr)
-    R = height * width
+    stack = refrops.build_level_stack(hdr_full)
+    R = shard_h * width
     CAP = max(R // 16, 2048)
     lane = torch.arange(R, device=dev)
 
     def shade_layer(hdr_band, slots):
-        ro, attr = rasterops.rasterize(gpu, vc, slots, width, height)
+        ro, attr = rasterops.rasterize(gpu, vc, slots, width, height, y0=y0,
+                                       shard_height=shard_h)
         nearer = ro.depth > gb.depth
         # ---- compact covered lanes (index order) off the visibility buffer
         val = ((ro.visid >= 0) & nearer).reshape(R)
@@ -65,7 +74,7 @@ def transparent_composite(gpu, vc, settings, gb, hdr, *, width, height,
                                       visid=vis_c.reshape(1, CAP),
                                       overflow=ro.overflow)
         attr_c = take(attr).reshape(1, CAP, attr.shape[-1])
-        pids = selc.reshape(1, CAP)
+        pids = (selc + y0 * width).reshape(1, CAP)         # global pixel ids
         tgb = rasterops.resolve_gbuffer(gpu, vc, ro_c, attr_c, pix_ids=pids)
         flat = lambda a: a.reshape((CAP,) + a.shape[2:])
         pos_c, n_c, alb_c = flat(tgb.world_pos), flat(tgb.normal), flat(tgb.albedo)
@@ -91,7 +100,7 @@ def transparent_composite(gpu, vc, settings, gb, hdr, *, width, height,
         opq_c = torch.where(take(gb.valid)[..., None], take(gb.world_pos),
                             pos_c + vdir_c)
         pix_uv = torch.stack([((selc % width).to(torch.float32) + 0.5) / width,
-                              ((selc // width).to(torch.float32) + 0.5) / height], -1)
+                              ((selc // width + y0).to(torch.float32) + 0.5) / height], -1)
         bg_refr = refrops.refracted_background(
             vc, pos_c, opq_c, n_c, vdir_c, mf[..., MAT_IOR], rough_c, atten,
             mf[..., MAT_ATTEN_DIST], ~pad, stack=stack, pix_uv=pix_uv,
@@ -105,8 +114,8 @@ def transparent_composite(gpu, vc, settings, gb, hdr, *, width, height,
         surf[sel] = blend_c
         cov = torch.zeros((R + 1, 1), dtype=hdr_band.dtype, device=dev)
         cov[sel] = cov_c
-        surf = surf[:R].reshape(height, width, 3)
-        cov = cov[:R].reshape(height, width, 1)
+        surf = surf[:R].reshape(shard_h, width, 3)
+        cov = cov[:R].reshape(shard_h, width, 1)
         return hdr_band * (1.0 - cov) + surf
 
     dist = torch.linalg.vector_norm(cull["ml_center_world"] - vc["camera_pos"][None, :],

@@ -1,6 +1,6 @@
 """Depth/normal-guided (joint bilateral) upsampling of low-res lighting grids
-(counterpart of hobbyrenderer_tpu/ops/upsample.py on one device, where its
-row halos are no-ops).
+(counterpart of hobbyrenderer_tpu/ops/upsample.py). Under a row band the
+grid's next row past the band comes from the rank below (one halo row).
 
 The grid is sampled at full pixels (i*s, j*s) (top-left aligned). A full
 pixel y interpolates grid rows y//s and y//s + 1 (edge-clamped) with weight
@@ -12,16 +12,26 @@ from __future__ import annotations
 
 import torch
 
+from hobbyrenderer_tpu_torch.ops.shard_utils import extend_rows, sub_shard
+
 __all__ = ["joint_bilateral_upsample"]
 
 DEPTH_REL = 0.1     # depth weight falloff, relative to the full-res depth
 NORMAL_POW = 8.0    # normal weight: max(n_q . n, 0) ** NORMAL_POW
 
 
-def _axis_pair(q, scale: int, axis: int):
-    """lo[y] = q[y // s], hi[y] = q[min(y // s + 1, n - 1)] along ``axis``."""
+def _axis_pair(q, scale: int, axis: int, shard=None):
+    """lo[y] = q[y // s], hi[y] = q[min(y // s + 1, n - 1)] along ``axis``;
+    under a row band (axis 0) the band's last row pairs with the next
+    band's first, and the frame's last with itself."""
     n = q.shape[axis]
-    q_hi = torch.cat([q.narrow(axis, 1, n - 1), q.narrow(axis, n - 1, 1)], dim=axis)
+    if axis == 0 and shard is not None and shard.n > 1:
+        below = extend_rows(q, 1, shard)[-1:]
+        if shard.mesh.rank == shard.n - 1:
+            below = q[-1:]
+        q_hi = torch.cat([q[1:], below], 0)
+    else:
+        q_hi = torch.cat([q.narrow(axis, 1, n - 1), q.narrow(axis, n - 1, 1)], dim=axis)
     return (torch.repeat_interleave(q, scale, dim=axis),
             torch.repeat_interleave(q_hi, scale, dim=axis))
 
@@ -40,17 +50,19 @@ def _fit(x, H: int, W: int):
     return x[:H, :W]
 
 
-def joint_bilateral_upsample(q, q_depth, q_nrm, q_valid, f_depth, f_nrm, scale: int):
+def joint_bilateral_upsample(q, q_depth, q_nrm, q_valid, f_depth, f_nrm, scale: int,
+                             shard=None):
     """Upsample a (Hg, Wg, C) grid to full (H, W, C) with geometry guidance.
 
     q_depth / q_nrm / q_valid are the G-buffer at the grid's pixels
     (``[::scale]``); f_depth / f_nrm the full-res guides, whose shape sets
-    the output's."""
+    the output's. ``shard``: the full-res row band (shard_h % scale == 0)."""
     Hg, Wg = q.shape[:2]
     H, W = f_depth.shape[:2]
     C = q.shape[-1]
+    qshard = sub_shard(shard, scale, Hg)
     pack = torch.cat([q, q_depth[..., None], q_nrm, q_valid[..., None].to(q.dtype)], -1)
-    lo, hi = _axis_pair(pack, scale, 0)
+    lo, hi = _axis_pair(pack, scale, 0, qshard)
     p00, p01 = _axis_pair(lo, scale, 1)
     p10, p11 = _axis_pair(hi, scale, 1)
     fy = _frac(Hg, scale, q.device)[:, None]

@@ -17,7 +17,10 @@ screenshots, texture streaming (``tex_streaming``: a TextureStreamer's
 worker thread schedules tile uploads within ``tex_budget_mb``, the frame
 loop applies them and fetches the demand feedback every 8th frame) and the
 debug views and overlays (``debug_view``, ``csm_debug``, ``ddgi_debug``,
-``tex_debug``). Multi-GPU rendering is ROADMAP Queue 1 item 10."""
+``tex_debug``). Multi-GPU rendering is ``hobbyrenderer_tpu_torch.parallel``
+(row bands and the sample-parallel path tracer on torch.distributed), which
+renders the scene, camera and settings a Renderer loads
+(``bench_parallel.py``)."""
 
 from __future__ import annotations
 

@@ -186,14 +186,14 @@ def test_split_units_covers_every_item_once_in_order(unit_items):
     assert len(units) <= trk._max_units(int(counts.sum()) + 11, len(counts), unit_items)
 
 
-def _unit_merge(records, work_tile, work_slot, *, tiles, tx, unit_items):
+def _unit_merge(records, work_tile, work_slot, *, tiles, tx, unit_items, ty0=0):
     """The kernels' algorithm in plain PyTorch: the worklist cut by
     split_units (empty tiles cleared); in each unit, per pixel, the deepest
     inside row among those that pass the strip test of the pixel's row
     (items, then rows, in order; strictly deeper wins); the units of a tile
     merged by the largest packed key (depth bits << 32 | ~(item * 32 +
     row)), in reverse unit order to show that the order does not matter.
-    Returns depth and visid."""
+    ``ty0``: the call's first tile row. Returns depth and visid."""
     units = trk.split_units(trk._tile_start(work_tile, tiles), unit_items)
     p = torch.arange(trk.PIX)
     xl = (p % 32).to(torch.float32)[None, :]
@@ -201,7 +201,7 @@ def _unit_merge(records, work_tile, work_slot, *, tiles, tx, unit_items):
     keys = torch.zeros((tiles, trk.PIX), dtype=torch.int64)
     for t, j0, n, _ in reversed(units.tolist()):
         oxf = torch.tensor([[[float((t % tx) * 32) + 0.5]]])
-        oyf = torch.tensor([[[float((t // tx) * 32) + 0.5]]])
+        oyf = torch.tensor([[[float((t // tx + ty0) * 32) + 0.5]]])
         best_z = torch.zeros(trk.PIX)
         best_i = torch.full((trk.PIX,), -1, dtype=torch.int64)
         for j in range(j0, j0 + n):
@@ -253,7 +253,7 @@ def _first_raster_call(name, tmp_path):
     return _WORKLISTS[name]
 
 
-def _with_ties(records, work_tile, work_slot, tiles, tx):
+def _with_ties(records, work_tile, work_slot, tiles, tx, ty0=0):
     """The worklist with ties at equal depth: a copy of every third item's
     chunk under a new slot, one copy right after its item and the next right
     before it; and, first in the first drawn tile, a chunk of 32 copies of
@@ -261,7 +261,8 @@ def _with_ties(records, work_tile, work_slot, tiles, tx):
     work_slot, and the id (slot * 32) that the first drawn pixel must take."""
     n = int((work_tile < tiles).sum())
     S = records.shape[0]
-    _, vis = trk.raster_tiles_reference(records, work_tile, work_slot, tiles=tiles, tx=tx)
+    _, vis = trk.raster_tiles_reference(records, work_tile, work_slot, tiles=tiles, tx=tx,
+                                        ty0=ty0)
     t0 = int(torch.nonzero((vis >= 0).any(1))[0])
     w = int(vis[t0][vis[t0] >= 0][0])
     picked = torch.arange(0, n, 3)
@@ -320,7 +321,7 @@ def test_bench_raster_counts_the_work(tmp_path):
     assert st["split_tiles"] == len(set(units[units[:, 3] > 1, 0].tolist()))
     t = work_tile[:st["items"]].long()
     oxf = ((t % kw["tx"]) * 32).to(torch.float32)[:, None, None] + 0.5
-    oyf = ((t // kw["tx"]) * 32).to(torch.float32)[:, None, None] + 0.5
+    oyf = ((t // kw["tx"] + kw["ty0"]) * 32).to(torch.float32)[:, None, None] + 0.5
     A = records[work_slot[:st["items"]].long()][..., :9]
     kept = int((~trk._rows_outside_strips(A, oxf, oyf)).sum())
     assert st["strip_rows"] == kept and 0 < kept < st["strip_rows_all"] == st["items"] * 1024
