@@ -128,7 +128,6 @@ import sys
 import tempfile
 import time
 import types
-import warnings
 
 import numpy as np
 import torch
@@ -827,6 +826,32 @@ IBL_COMBINED_WALKS = [(w, f"rt_k3_lanes_{w}", f"rt_k3_capped_{w}")
 SHARC_RAD_RTOL = 1e-6    # CUDA against CPU: the same elementwise f32 operations in one order
 
 
+def span_syncs(frames, names=None):
+    """{span: host syncs} of the spans named (every span with a sync, and
+    "(outside spans)", when ``names`` is None), summed over the tracer's
+    records of traced frames (utils/timing.py::FrameRecord)."""
+    out = {}
+    for f in frames:
+        spans = [(s_.name, s_.syncs) for s_ in f.spans] + [("(outside spans)",
+                                                           f.syncs_outside)]
+        for name, n in spans:
+            if (n if names is None else name in names):
+                out[name] = out.get(name, 0) + n
+    return out
+
+
+def traced_frame(render_frame):
+    """Render one frame traced by the port's tracer (host syncs by span,
+    utils/timing.py) -> its FrameRecord."""
+    from hobbyrenderer_tpu_torch.utils.timing import PROFILER
+    PROFILER.enabled = True
+    try:
+        render_frame()
+    finally:
+        PROFILER.enabled = False
+    return PROFILER.frames[-1]
+
+
 def phase_ibl_combined(Renderer, Config, reset_counts, counts, time_passes, median_ms, rko,
                        card, n_frames, scene="stress", W=1920, H=1080):
     """Phase 20: the slice's main path, Renderer(Config(scene="stress",
@@ -836,8 +861,9 @@ def phase_ibl_combined(Renderer, Config, reset_counts, counts, time_passes, medi
     finite HDR, SHARC's occupied slots nonzero after frame 1 and never
     fewer. RTXDI and Denoise run under set_sync_debug_mode("error"); the
     host syncs of SHARC, SharcIndirectQuery and SpecularIndirect are
-    counted, and the two SHARC passes must have none. Captures the first frame's K2 call and the second frame's
-    sharc_update inputs."""
+    counted (the tracer's spans of traced frames), and the two SHARC passes
+    must have none. Captures the first frame's K2 call and the second
+    frame's sharc_update inputs."""
     from hobbyrenderer_tpu_torch.ops import sharc as sharcops
     cap = {}
     k2_orig, upd_orig = rko.restir_candidates, sharcops.sharc_update
@@ -858,17 +884,15 @@ def phase_ibl_combined(Renderer, Config, reset_counts, counts, time_passes, medi
                  device="cuda")
     setup_s = time.perf_counter() - t0
     r._model.keep = ("hdr",)
-    syncs = {}
-    events = time_passes(r.graph, strict=("RTXDI", "Denoise"),
-                         watch=("SHARC", "SharcIndirectQuery", "SpecularIndirect"), syncs=syncs)
+    events = time_passes(r.graph, strict=("RTXDI", "Denoise"))
     rko.restir_candidates, sharcops.sharc_update = k2_spy, upd_spy
     try:
         reset_counts()
-        frame_ms, stats, per_frame, occupied, finite = [], [], [], [], True
+        frame_ms, stats, per_frame, occupied, finite, traced = [], [], [], [], True, []
         for _ in range(n_frames):
             c0 = counts()
             f0 = time.perf_counter()
-            r.render_frame()
+            traced.append(traced_frame(r.render_frame))
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - f0) * 1e3)
             per_frame.append({k: v - c0[k] for k, v in counts().items()})
@@ -878,6 +902,7 @@ def phase_ibl_combined(Renderer, Config, reset_counts, counts, time_passes, medi
         launches = counts()
     finally:
         rko.restir_candidates, sharcops.sharc_update = k2_orig, upd_orig
+    syncs = span_syncs(traced, ("SHARC", "SharcIndirectQuery", "SpecularIndirect"))
     ldr = r.last_frame
     png = os.path.join(tempfile.gettempdir(), "chip_smoke_stress_ibl_combined_1080p.png")
     r.save_screenshot(png)
@@ -1056,15 +1081,16 @@ def phase_env_anim(Renderer, Config, reset_counts, counts, time_passes, median_m
     """Phase 24: the slice's main path at 1920x1080, n_frames frames:
     set-up s, frame ms (median of frames 2-n), per-pass stream ms and
     Frame/RTRefit's, K1-K4 launches a frame, the host syncs of each frame
-    (set_sync_debug_mode "warn"), the power-CDF refreshes; then three more
-    frames under torch.profiler (kernels a frame, busy share). Captures
+    by span (the port's tracer), the power-CDF refreshes; then three more
+    frames under torch.profiler (kernels a frame, the device's busy
+    share: the union of its operations over its window). Captures
     frame 3's K3 walks and K4 calls (the refitted tables), its K2 call (the
     pool holding the environment's lights) and its refit's inputs."""
     from hobbyrenderer_tpu_torch import renderer as rmod
     from hobbyrenderer_tpu_torch.ops import beam as beamops
     from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
     from hobbyrenderer_tpu_torch.ops import restir_kernel as rko
-    from hobbyrenderer_tpu_torch.profile_frame import busy_share, traced_frames
+    from hobbyrenderer_tpu_torch.profile_frame import device_busy, is_range, traced_frames
     t0 = time.perf_counter()
     r = env_anim_renderer(Renderer, Config, env_path, W, H, grid=grid)
     setup_s = time.perf_counter() - t0
@@ -1080,32 +1106,15 @@ def phase_env_anim(Renderer, Config, reset_counts, counts, time_passes, median_m
             cap["refit"] = (rt, inst_transform.clone())
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
+        prev = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")     # the refit must not wait for the device
         try:
             out = refit_orig(rt, inst_transform)
         finally:
-            torch.cuda.set_sync_debug_mode("warn")
+            torch.cuda.set_sync_debug_mode(prev)
         e1.record()
         refit_ev.append((e0, e1))
         return out
-
-    # each host sync of a frame is counted against the pass it happens in
-    # ("outside": the scene update, the refit, the view constants)
-    where = ["outside"]
-    by_pass = {}
-    for ps in r.graph.passes:
-        if ps.enabled:
-            def named(ctx, res, fn=ps.fn, name=ps.name):
-                where[0] = name
-                try:
-                    fn(ctx, res)
-                finally:
-                    where[0] = "outside"
-            ps.fn = named
-
-    def on_warning(message, *a, **kw):
-        if "synchroniz" in str(message):
-            by_pass[where[0]] = by_pass.get(where[0], 0) + 1
 
     def k2_spy(*a, **kw):
         if r.frame_index == 2:
@@ -1126,37 +1135,28 @@ def phase_env_anim(Renderer, Config, reset_counts, counts, time_passes, median_m
     b16ops.bvh16_walk, beamops.beam_any_hit_tiles = k3_spy, k4_spy
     try:
         reset_counts()
-        frame_ms, per_frame, syncs, stats = [], [], [], []
+        frame_ms, per_frame, traced, stats = [], [], [], []
         for _ in range(n_frames):
             c0 = counts()
             f0 = time.perf_counter()
-            n0 = sum(by_pass.values())
-            with warnings.catch_warnings():
-                warnings.simplefilter("always")
-                warnings.showwarning = on_warning
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    r.render_frame()
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
+            traced.append(traced_frame(r.render_frame))
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - f0) * 1e3)
-            syncs.append(sum(by_pass.values()) - n0)
             per_frame.append({k: v - c0[k] for k, v in counts().items()})
             stats.append(r.stats())
         launches = counts()
     finally:
         rmod.refit_scene_rt, rko.restir_candidates = refit_orig, k2_orig
         b16ops.bvh16_walk, beamops.beam_any_hit_tiles = k3_orig, k4_orig
+    syncs, by_pass = [f.host_syncs for f in traced], span_syncs(traced)
     finite = bool(torch.isfinite(r._model.last_resources["hdr"]).all())
     ldr = r.last_frame
     png = os.path.join(tempfile.gettempdir(), "chip_smoke_stress_env_anim_1080p.png")
     r.save_screenshot(png)
     passes = [p.name for p in r.graph.passes if p.enabled]
     n_lights = r.gpu.meta["light_count"]
-    dev, _, wall_ms = traced_frames(r, 3)
-    names = set(passes) | {"Frame/RTRefit"}
-    busy = busy_share([e for e in dev if e.name not in names], 3, wall_ms)
+    dev, _ = traced_frames(r, 3)
+    busy = device_busy([e for e in dev if not is_range(e.name, passes)], 3)
     r.shutdown()
     pass_ms = {k: median_ms(v) for k, v in events.items()}
     pass_ms["Frame/RTRefit"] = median_ms(refit_ev)
@@ -1387,40 +1387,6 @@ STREAM_HOLD_FRAME = 12    # phase 27: the streamed frame whose K1-K4 calls are h
 FLAGSHIP = dict(direct_mode="restir", indirect_mode="restir")
 
 
-def _sync_counter(r):
-    """Count each host sync of Renderer ``r``'s frames against the pass it
-    happens in ("outside": the frame loop around the passes, where the
-    streaming feedback is fetched). Returns (by_pass dict, run(frame_fn))."""
-    where = ["outside"]
-    by_pass = {}
-    for ps in r.graph.passes:
-        if ps.enabled:
-            def named(ctx, res, fn=ps.fn, name=ps.name):
-                where[0] = name
-                try:
-                    fn(ctx, res)
-                finally:
-                    where[0] = "outside"
-            ps.fn = named
-
-    def on_warning(message, *a, **kw):
-        if "synchroniz" in str(message):
-            by_pass[where[0]] = by_pass.get(where[0], 0) + 1
-
-    def run(fn):
-        n0 = sum(by_pass.values())
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = on_warning
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return sum(by_pass.values()) - n0
-    return by_pass, run
-
-
 def hold_captured(cap, bench_raster, bench_k2k4, card, tag, emit=log):
     """A frame's captured K1 calls, K2 call, K3 walks and K4 calls, each
     held against its plain version as phases 2, 6, 7 and 3 hold them:
@@ -1493,7 +1459,6 @@ def phase_streamed_flagship(Renderer, Config, reset_counts, counts, time_passes,
     assert st.budget_pages == 4096 and st._worker is not None, (st.budget_pages, st._worker)
     r._model.keep = ("hdr",)
     events = time_passes(r.graph)
-    by_pass, synced = _sync_counter(r)
     stream_ev, apply_host_ms, published = [], [], []
     apply_orig, publish_orig = st.apply_updates, st.publish_feedback
 
@@ -1539,7 +1504,7 @@ def phase_streamed_flagship(Renderer, Config, reset_counts, counts, time_passes,
 
     rk.raster_resolve_tiles, rko.restir_candidates = k1_spy, k2_spy
     b16ops.bvh16_walk, beamops.beam_any_hit_tiles = k3_spy, k4_spy
-    frame_ms, plain_ms, per_frame, syncs, tiles, resident = [], [], [], [], [], []
+    frame_ms, plain_ms, per_frame, traced, tiles, resident = [], [], [], [], [], []
     launches = {}
     try:
         for f in range(STREAM_FRAMES):
@@ -1547,7 +1512,7 @@ def phase_streamed_flagship(Renderer, Config, reset_counts, counts, time_passes,
             up0 = st.tiles_uploaded
             reset_counts()
             f0 = time.perf_counter()
-            syncs.append(synced(r.render_frame))
+            traced.append(traced_frame(r.render_frame))
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - f0) * 1e3)
             c = counts()
@@ -1564,6 +1529,7 @@ def phase_streamed_flagship(Renderer, Config, reset_counts, counts, time_passes,
     finally:
         rk.raster_resolve_tiles, rko.restir_candidates = k1_orig, k2_orig
         b16ops.bvh16_walk, beamops.beam_any_hit_tiles = k3_orig, k4_orig
+    syncs, by_pass = [f.host_syncs for f in traced], span_syncs(traced)
     stats = r.stats()
     finite = bool(torch.isfinite(r._model.last_resources["hdr"]).all())
     ldr = r.last_frame
@@ -2986,19 +2952,18 @@ def main():
                  device="cuda")
     setup_fl = time.perf_counter() - t0
     r._model.keep = ("hdr",)
-    syncs = {}
-    events = time_passes(r.graph, strict=("RTXDI", "Denoise"),
-                         watch=("RTXDIGI", "SpecularIndirect"), syncs=syncs)
+    events = time_passes(r.graph, strict=("RTXDI", "Denoise"))
     reset_counts()
-    frame_fl, stats_fl, per_frame = [], [], []
+    frame_fl, stats_fl, per_frame, traced = [], [], [], []
     for _ in range(n_frames):
         c0 = counts()
         f0 = time.perf_counter()
-        r.render_frame()
+        traced.append(traced_frame(r.render_frame))
         torch.cuda.synchronize()
         frame_fl.append((time.perf_counter() - f0) * 1e3)
         stats_fl.append(r.stats())
         per_frame.append({k: v - c0[k] for k, v in counts().items()})
+    syncs = span_syncs(traced, ("RTXDIGI", "SpecularIndirect"))
     launches_fl = counts()
     ldr = r.last_frame
     hdr = r._model.last_resources["hdr"]

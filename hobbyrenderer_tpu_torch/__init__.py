@@ -12,9 +12,11 @@ row-band deferred and flagship frames and the sample-parallel path tracer
 
 The port keeps its own copies of the host modules it needs and imports
 nothing of the JAX package: ``config``, ``scene.{scene,cooker,procedural,
-camera,camera_state,loader,cache,textures,bc6h}``, ``utils.{math,image,
-timing}`` and ``native`` (numpy, byte-for-byte the JAX package's behaviour;
-``Config.as_pytree`` returns a plain dict).
+camera,camera_state,loader,cache,textures,bc6h}``, ``utils.{math,image}``
+and ``native`` (numpy, byte-for-byte the JAX package's behaviour;
+``Config.as_pytree`` returns a plain dict). ``utils/timing.py`` is the
+port's own tracer: spans on the profiler's clock, host syncs counted per
+span, the path tracer's per-frame counters.
 
 Layout mirrors the JAX package: ``scene/gpu.py``, ``graph/rendergraph.py``,
 ``ops/*.py``, ``models/deferred.py``, ``parallel/*.py``, ``renderer.py``,

@@ -31,6 +31,7 @@ import json
 import sys
 
 from hobbyrenderer_tpu_torch.config import Config, RenderingMode
+from hobbyrenderer_tpu_torch.utils.timing import PROFILER
 
 
 def main(argv=None):
@@ -113,7 +114,9 @@ def main(argv=None):
                         "per-pass ms under --execute-per-pass) as JSON")
     p.add_argument("--profile-dir", type=str, default=None, metavar="DIR",
                    help="write a torch.profiler trace of the run (Chrome trace JSON) here")
-    p.add_argument("--timings", action="store_true")
+    p.add_argument("--timings", action="store_true",
+                   help="trace every frame: host ms and host syncs by span (also traced: "
+                        "the frames --profile-dir records)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
     a = p.parse_args(argv)
@@ -145,6 +148,7 @@ def main(argv=None):
         prof = torch.profiler.profile(
             activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(
                 a.profile_dir))
+    PROFILER.enabled = a.timings
     with prof:
         stats = r.run(num_frames=a.frames, screenshot=a.screenshot)
     stats.update(r.stats())

@@ -25,6 +25,8 @@ from typing import Any, Callable, Dict, List, Sequence, Set
 
 import torch
 
+from hobbyrenderer_tpu_torch.utils.timing import PROFILER
+
 
 @dataclass
 class FrameContext:
@@ -177,8 +179,8 @@ class RenderGraph:
             guard = _GuardedResources(store, set(p.reads), set(p.writes), p.name)
 
             def run(p=p, guard=guard):
-                # names the pass's ops in torch.profiler traces (per-pass time)
-                with torch.profiler.record_function(p.name):
+                # the pass's span: its host ms and syncs, its ops' range in traces
+                with PROFILER.span(p.name):
                     p.fn(ctx, guard)
             if around is None:
                 run()

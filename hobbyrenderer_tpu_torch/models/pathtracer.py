@@ -46,6 +46,7 @@ from hobbyrenderer_tpu_torch.scene.gpu import (MAT_ALPHA_CUTOFF, MAT_ATTEN_COLOR
                                                MAT_TRANSMISSION, MAT_UV_SCALE)
 from hobbyrenderer_tpu_torch.scene.scene import LIGHT_DIRECTIONAL
 from hobbyrenderer_tpu_torch.utils import tmath as tm
+from hobbyrenderer_tpu_torch.utils.timing import PROFILER
 from hobbyrenderer_tpu_torch.utils.rng import as_u32, pcg3d, uniform_from_bits
 
 # per-bounce wavefront-compaction schedule (pathtracer.py:274-277): bounces
@@ -56,6 +57,10 @@ COMPACT_START = 3
 CAP_FRACS = (0.625, 0.375, 0.25, 0.125, 0.125)
 COMPACT_MIN_LANES = 32768
 COMPACT_MIN_CAP = 4096
+# a bounce's counts (its row of the frame's counter tensor): the lanes live
+# into it (its closest-hit K3 lanes), those that spent K3's step budget, and
+# its NEE any-hit K3 lanes and their capped ones
+BOUNCE_COUNTS = ("pt_live", "pt_capped", "pt_nee", "pt_nee_capped")
 
 
 def camera_rays(vc, height: int, width: int, jitter_uv):
@@ -129,13 +134,11 @@ def _rand3(pix, frame, dim: int):
             uniform_from_bits(bits[..., 2]))
 
 
-def _add(stats, key, value):
-    stats[key] = stats[key] + value if key in stats else value
-
-
 def _bounce(gpu, rt: SceneRT, vc, settings, height: int, p: _Paths, bounce: int, sun_dir,
             rr_start: int, sky_fn, env_as_lights: bool, stats) -> _Paths:
-    """One bounce of every lane (the reference's bounce_body)."""
+    """One bounce of every lane (the reference's bounce_body). ``stats``:
+    the bounce's row of the frame's int64 counters (BOUNCE_COUNTS), written
+    on the device."""
     o, d, radiance, throughput, active, inside, sigma_t, prev_pdf, pix, frame = p
     dim = 1 + bounce * 8
 
@@ -144,8 +147,8 @@ def _bounce(gpu, rt: SceneRT, vc, settings, height: int, p: _Paths, bounce: int,
         return a, b
 
     hit, capped = traceops.closest_hit_auto(rt, o, d, active=active, return_capped=True)
-    _add(stats, "rt_k3_lanes_pt", active.sum())
-    _add(stats, "rt_k3_capped_pt", (capped & active).sum())
+    torch.sum(active, 0, out=stats[0])
+    torch.sum(capped & active, 0, out=stats[1])
     miss = (hit.tri < 0) & active
     # Beer-Lambert through the current medium (a miss's t is the finite INF)
     seg_t = torch.where(torch.isfinite(hit.t), hit.t, 0.0)
@@ -263,8 +266,8 @@ def _bounce(gpu, rt: SceneRT, vc, settings, height: int, p: _Paths, bounce: int,
     occluded, capped = traceops.any_hit_auto(rt, so, L_v,
                                              t_max=torch.where(nee_active, tmax_t, 1e-4),
                                              active=nee_active, return_capped=True)
-    _add(stats, "rt_k3_lanes_pt_nee", nee_active.sum())
-    _add(stats, "rt_k3_capped_pt_nee", (capped & nee_active).sum())
+    torch.sum(nee_active, 0, out=stats[2])
+    torch.sum(capped & nee_active, 0, out=stats[3])
     contrib = throughput * f * rad * inv_sel[..., None]
     radiance = radiance + torch.where((nee_active & ~occluded)[..., None], contrib, 0.0)
 
@@ -325,11 +328,12 @@ def _bounce(gpu, rt: SceneRT, vc, settings, height: int, p: _Paths, bounce: int,
     return _Paths(o, d_new, radiance, throughput, active, inside, sigma_t, prev_pdf, pix, frame)
 
 
-def _compact(p: _Paths, b: int, cap: int, stats):
+def _compact(p: _Paths, b: int, cap: int, dropped):
     """Capacity Russian roulette (p_keep = 0.8 cap / live lanes, throughput /
     p_keep: unbiased), then the kept lanes in order into ``cap`` slots by one
     packed row gather; live lanes past cap are dropped and counted. Returns
-    the new wavefront, each slot's source lane and the empty slots."""
+    the new wavefront, each slot's source lane and the empty slots;
+    ``dropped`` (a device scalar) counts the lanes past cap."""
     cur = p.active.shape[0]
     dev = p.active.device
     dim_c = 1 + (b - 1) * 8 + 7                   # the unused slot of bounce b-1
@@ -337,7 +341,7 @@ def _compact(p: _Paths, b: int, cap: int, stats):
     n_act = p.active.sum()
     p_keep = torch.clamp(0.8 * cap / torch.clamp(n_act.to(torch.float32), min=1.0), max=1.0)
     keep = p.active & (u_c < p_keep)
-    _add(stats, "pt_dropped_lanes", torch.clamp(keep.sum() - cap, min=0))
+    dropped.add_(torch.clamp(keep.sum() - cap, min=0))
     throughput = p.throughput / p_keep
     rank = torch.cumsum(keep.to(torch.int64), 0) - 1
     slot = torch.where(keep & (rank < cap), rank, cap)      # row cap: dropped
@@ -356,6 +360,13 @@ def _compact(p: _Paths, b: int, cap: int, stats):
                   frame=pk[:, 15].to(torch.int64)), selc, pad
 
 
+def counter_names(max_bounces: int):
+    """The names of a frame's counters, in the order of trace_paths' int64
+    counter tensor: BOUNCE_COUNTS for each bounce, then pt_dropped_lanes."""
+    return [f"{k}_{b}" for b in range(max_bounces) for k in BOUNCE_COUNTS] + [
+        "pt_dropped_lanes"]
+
+
 def trace_paths(gpu, rt: SceneRT, vc, settings, height: int, width: int, accum_index: int,
                 max_bounces: int = 8, rr_start: int = 2, sky_fn=None,
                 env_as_lights: bool = False, spp: int = 1, with_stats: bool = False):
@@ -369,39 +380,59 @@ def trace_paths(gpu, rt: SceneRT, vc, settings, height: int, width: int, accum_i
     so an spp=N frame is the mean of N consecutive spp=1 frames. Per-lane
     radiance is kept per (sample, pixel) lane and summed over the samples in
     a fixed order at the end, so the result does not depend on the order of
-    the device's scatter adds."""
+    the device's scatter adds.
+
+    The counts stay on the device in one int64 tensor (``counter_names``),
+    handed to the tracer with each bounce's wavefront width
+    (``pt_width_b``, host ints): a traced frame keeps them."""
     R = height * width
     RS = R * spp
     dev = gpu.mat_f.device
-    lane = torch.arange(RS, dtype=torch.int64, device=dev)
-    pix = lane % R
-    frame = as_u32(accum_index * spp + lane // R)
-    ju, jv, _ = _rand3(pix, frame, 0)
-    rays = [camera_rays(vc, height, width, torch.stack(
-        [ju[s * R:(s + 1) * R].reshape(height, width),
-         jv[s * R:(s + 1) * R].reshape(height, width)], -1)) for s in range(spp)]
-    o = torch.cat([r[0] for r in rays]) if spp > 1 else rays[0][0]
-    d = torch.cat([r[1] for r in rays]) if spp > 1 else rays[0][1]
-    sun_dir = gpu.light_dir.index_select(0, _sun_index(gpu).reshape(1))[0]   # no host read
-    z3 = torch.zeros((RS, 3), dtype=torch.float32, device=dev)
-    p = _Paths(o.contiguous(), d.contiguous(), z3, torch.ones_like(z3),
-               torch.ones((RS,), dtype=torch.bool, device=dev),
-               torch.zeros((RS,), dtype=torch.bool, device=dev), z3,
-               torch.zeros((RS,), dtype=torch.float32, device=dev), pix, frame)
-    stats = {"pt_dropped_lanes": torch.zeros((), dtype=torch.int64, device=dev)}
+    with PROFILER.span("PT setup"):
+        lane = torch.arange(RS, dtype=torch.int64, device=dev)
+        pix = lane % R
+        frame = as_u32(accum_index * spp + lane // R)
+        ju, jv, _ = _rand3(pix, frame, 0)
+        rays = [camera_rays(vc, height, width, torch.stack(
+            [ju[s * R:(s + 1) * R].reshape(height, width),
+             jv[s * R:(s + 1) * R].reshape(height, width)], -1)) for s in range(spp)]
+        o = torch.cat([r[0] for r in rays]) if spp > 1 else rays[0][0]
+        d = torch.cat([r[1] for r in rays]) if spp > 1 else rays[0][1]
+        sun_dir = gpu.light_dir.index_select(0, _sun_index(gpu).reshape(1))[0]   # no host read
+        z3 = torch.zeros((RS, 3), dtype=torch.float32, device=dev)
+        p = _Paths(o.contiguous(), d.contiguous(), z3, torch.ones_like(z3),
+                   torch.ones((RS,), dtype=torch.bool, device=dev),
+                   torch.zeros((RS,), dtype=torch.bool, device=dev), z3,
+                   torch.zeros((RS,), dtype=torch.float32, device=dev), pix, frame)
+        counts = torch.zeros((max_bounces * len(BOUNCE_COUNTS) + 1,), dtype=torch.int64,
+                             device=dev)
+    rows = counts[:-1].view(max_bounces, len(BOUNCE_COUNTS))
+    widths = []
 
     def bounce(p, b):
-        # named ranges: profile_frame.py splits each bounce's kernel time
-        with torch.profiler.record_function(f"PT bounce {b}"):
+        widths.append(int(p.active.shape[0]))
+        # named spans: the traced frames split each bounce's kernel time
+        with PROFILER.span(f"PT bounce {b}"):
             return _bounce(gpu, rt, vc, settings, height, p, b, sun_dir, rr_start, sky_fn,
-                           env_as_lights, stats)
+                           env_as_lights, rows[b])
+
+    def finish(rad):
+        PROFILER.count(counter_names(max_bounces), counts)
+        PROFILER.count([f"pt_width_{b}" for b in range(max_bounces)], widths)
+        if not with_stats:
+            return rad
+        sums = rows.sum(0)
+        return rad, {"pt_dropped_lanes": counts[-1], "rt_k3_lanes_pt": sums[0],
+                     "rt_k3_capped_pt": sums[1], "rt_k3_lanes_pt_nee": sums[2],
+                     "rt_k3_capped_pt_nee": sums[3]}
 
     use_compact = RS >= COMPACT_MIN_LANES and max_bounces > COMPACT_START
     if not use_compact:
         for b in range(max_bounces):
             p = bounce(p, b)
-        rad = p.radiance.reshape(spp, R, 3).mean(0) if spp > 1 else p.radiance
-        return (rad, stats) if with_stats else rad
+        with PROFILER.span("PT gather"):
+            rad = p.radiance.reshape(spp, R, 3).mean(0) if spp > 1 else p.radiance
+        return finish(rad)
 
     for b in range(COMPACT_START):
         p = bounce(p, b)
@@ -414,16 +445,17 @@ def trace_paths(gpu, rt: SceneRT, vc, settings, height: int, width: int, accum_i
         cur = int(p.active.shape[0])
         cap = min(max((int(RS * CAP_FRACS[fi]) // 1024) * 1024, COMPACT_MIN_CAP), cur)
         if cap < cur:
-            with torch.profiler.record_function(f"PT compact {b}"):
-                p, selc, pad = _compact(p, b, cap, stats)
+            with PROFILER.span(f"PT compact {b}"):
+                p, selc, pad = _compact(p, b, cap, counts[-1])
             origin = torch.where(pad, RS, origin[selc])
         else:
             p = p._replace(radiance=torch.zeros((cur, 3), device=dev))
         p = bounce(p, b)
         rad_lane.index_add_(0, origin, p.radiance)
-    rad = rad_lane[:RS].reshape(spp, R, 3).sum(0)
-    rad = rad / spp if spp > 1 else rad
-    return (rad, stats) if with_stats else rad
+    with PROFILER.span("PT gather"):
+        rad = rad_lane[:RS].reshape(spp, R, 3).sum(0)
+        rad = rad / spp if spp > 1 else rad
+    return finish(rad)
 
 
 class PathTracerRenderer:
@@ -460,15 +492,16 @@ class PathTracerRenderer:
             self.accum.zero_()
             self._prev_view = vm
         # num_accum counts samples; the RNG frame index is the spp-frame ordinal
-        sample, stats = trace_paths(gpu, self.rt, vc, settings, self.height, self.width,
-                                    self.num_accum // self.spp, self.max_bounces,
-                                    self.rr_start, env_as_lights=self.env_as_lights,
-                                    spp=self.spp, with_stats=True)
-        sample = sample.reshape(self.height, self.width, 3)
-        w = np.float32(self.spp) / (np.float32(self.num_accum) + np.float32(self.spp))
-        self.accum = self.accum * float(np.float32(1.0) - w) + sample * float(w)
-        hist = postops.luminance_histogram(self.accum)
-        self.exposure = postops.exposure_adapt(hist, self.exposure, dt, settings)
-        self.last_stats = stats
-        self.num_accum += self.spp
-        return postops.tonemap_to_output(self.accum, self.exposure)
+        sample, self.last_stats = trace_paths(gpu, self.rt, vc, settings, self.height,
+                                              self.width, self.num_accum // self.spp,
+                                              self.max_bounces, self.rr_start,
+                                              env_as_lights=self.env_as_lights, spp=self.spp,
+                                              with_stats=True)
+        with PROFILER.span("PT accumulate"):
+            sample = sample.reshape(self.height, self.width, 3)
+            w = np.float32(self.spp) / (np.float32(self.num_accum) + np.float32(self.spp))
+            self.accum = self.accum * float(np.float32(1.0) - w) + sample * float(w)
+            hist = postops.luminance_histogram(self.accum)
+            self.exposure = postops.exposure_adapt(hist, self.exposure, dt, settings)
+            self.num_accum += self.spp
+            return postops.tonemap_to_output(self.accum, self.exposure)

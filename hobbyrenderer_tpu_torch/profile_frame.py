@@ -26,7 +26,8 @@ default 64 MB pool (the batch applied at frame start is the
 "Frame/TexStreaming" row).
 Then the frame time (host clock with a synchronize, median after the
 first), the kernels per frame, and the device's busy share of the traced
-frames (kernel time / wall time). The first line is the card's name and
+frames (the union of the device's operations over the device's window,
+first start to last end). The first line is the card's name and
 power limit. Needs a GPU."""
 
 from __future__ import annotations
@@ -38,18 +39,16 @@ import statistics
 import subprocess
 import tempfile
 import time
-import warnings
 
 import torch
 
 
-def time_passes(graph, strict=(), watch=(), syncs=None):
+def time_passes(graph, strict=()):
     """Wrap every enabled pass of ``graph`` with CUDA events recorded on the
     stream (no host sync); the passes named in ``strict`` also run under
     ``torch.cuda.set_sync_debug_mode("error")``, so a host sync inside
-    them raises, and those in ``watch`` under "warn", counting their host
-    syncs into ``syncs`` {pass: n}. Returns {pass: [(start, end) event
-    pairs, one per frame]}."""
+    them raises. Returns {pass: [(start, end) event pairs, one per frame]}.
+    The host syncs of each pass are the tracer's (utils/timing.py)."""
     events = {}
 
     def wrap(ps):
@@ -58,23 +57,13 @@ def time_passes(graph, strict=(), watch=(), syncs=None):
         def run(ctx, res):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
-            if ps.name in watch:
-                with warnings.catch_warnings(record=True) as seen:
-                    warnings.simplefilter("always")
-                    torch.cuda.set_sync_debug_mode("warn")
-                    try:
-                        fn(ctx, res)
-                    finally:
-                        torch.cuda.set_sync_debug_mode("default")
-                if syncs is not None:
-                    syncs[ps.name] = syncs.get(ps.name, 0) + sum(
-                        "synchroniz" in str(w.message) for w in seen)
-            elif ps.name in strict:
+            if ps.name in strict:
+                prev = torch.cuda.get_sync_debug_mode()
                 torch.cuda.set_sync_debug_mode("error")
                 try:
                     fn(ctx, res)
                 finally:
-                    torch.cuda.set_sync_debug_mode("default")
+                    torch.cuda.set_sync_debug_mode(prev)
             else:
                 fn(ctx, res)
             e1.record()
@@ -95,30 +84,50 @@ def median_ms(pairs, skip: int = 1) -> float:
 def traced_frames(r, frames: int = 3):
     """Render ``frames`` frames of Renderer ``r`` under torch.profiler:
     (the trace's device events, each frame's ms on the host clock with a
-    synchronize, the traced wall ms)."""
+    synchronize)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     frame_ms = []
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
         for _ in range(frames):
             f0 = time.perf_counter()
             r.render_frame()
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - f0) * 1e3)
-        wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return dev, frame_ms, wall_ms
+    return dev, frame_ms
 
 
-def busy_share(kern, frames: int, wall_ms: float) -> dict:
-    """Kernels and kernel ms a frame and the device's busy share (kernel
-    time over the traced wall time, a lower bound) of ``kern``, the kernel
-    events of ``frames`` traced frames."""
-    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+def is_range(name: str, passes=()) -> bool:
+    """A device-side range of the program's spans (a pass, 'PT ...',
+    'Frame/...'), as against a device operation."""
+    return name in passes or name.startswith(("PT ", "Frame/"))
+
+
+def union_us(events) -> float:
+    """The union of the device events' intervals, us."""
+    total, end = 0.0, None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        s_, e_ = e.time_range.start, e.time_range.end
+        if end is None or s_ > end:
+            total += e_ - s_
+            end = e_
+        elif e_ > end:
+            total += e_ - end
+            end = e_
+    return total
+
+
+def device_busy(ops, frames: int) -> dict:
+    """Kernels and kernel ms a frame of ``ops``, the device operations of
+    ``frames`` traced frames, and the device's busy share: the union of
+    their intervals over the device's window, first start to last end."""
+    kern = [e for e in ops if not e.name.startswith(("Memcpy", "Memset"))]
+    window = (max(e.time_range.end for e in ops) - min(e.time_range.start for e in ops)
+              if ops else 0.0)
     return {"kernels_per_frame": round(len(kern) / frames),
-            "kernel_ms_per_frame": round(busy_ms / frames, 2),
-            "traced_wall_ms_per_frame": round(wall_ms / frames, 2),
-            "device_busy_share": round(busy_ms / wall_ms, 4)}
+            "kernel_ms_per_frame": round(sum(e.time_range.elapsed_us() for e in kern)
+                                         / 1e3 / frames, 2),
+            "device_busy_share": round(union_us(ops) / window, 4) if window else None}
 
 
 def envmap_path(envmap):
@@ -140,17 +149,25 @@ def _in(k, rng):
     return rng.time_range.start <= k.time_range.start < rng.time_range.end
 
 
+def _pt_order(name: str):
+    """'PT setup', then the bounces and compactions by number, 'PT gather',
+    'PT accumulate'."""
+    last = name.split()[-1]
+    return (-1, name) if last == "setup" else (int(last), name) if last.isdigit() else (99, name)
+
+
 def _pt_rows(dev_events, frames: int):
-    """Per-bounce kernel ms of a path-tracer trace (ms a frame): the 'PT
-    bounce b' and 'PT compact b' ranges, each bounce split into its two K3
-    walks (the bvh16 walk kernels in the range, in order: the closest hit,
-    then the NEE any hit) and the shading around them."""
+    """Per-span kernel ms of a path-tracer trace (ms a frame): 'PT setup',
+    the 'PT bounce b' and 'PT compact b' ranges, 'PT gather' and 'PT
+    accumulate', each bounce split into its two K3 walks (the bvh16 walk
+    kernels in the range, in order: the closest hit, then the NEE any hit)
+    and the shading around them. Returns (rows, the device operations)."""
     def ms(ks):
         return round(sum(k.time_range.elapsed_us() for k in ks) / 1e3 / frames, 3)
     ranges = [e for e in dev_events if e.name.startswith("PT ")]
-    kern = [e for e in dev_events if not e.name.startswith("PT ")]
+    kern = [e for e in dev_events if not is_range(e.name)]
     rows = {}
-    for name in sorted({e.name for e in ranges}, key=lambda n: (int(n.split()[-1]), n)):
+    for name in sorted({e.name for e in ranges}, key=_pt_order):
         row = {"kernel_ms": 0.0, "kernels": 0}
         walks = [[], []]
         for r in (r for r in ranges if r.name == name):
@@ -224,6 +241,7 @@ def main(argv=None):
                  scene=scene, device="cuda")
     names = [] if pt else [ps.name for ps in r.graph.passes if ps.enabled] + [
         "Frame/RTRefit", "Frame/TexStreaming"]
+    passes = set(names)
     events = {} if pt else time_passes(r.graph)
     frame_ms = []
     for _ in range(a.frames - 3):
@@ -231,15 +249,15 @@ def main(argv=None):
         r.render_frame()
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-    dev, traced_ms, wall_ms = traced_frames(r, 3)
+    dev, traced_ms = traced_frames(r, 3)
     frame_ms += traced_ms
     r.shutdown()
     if pt:
         rows, kern = _pt_rows(dev, 3)
         print("per-bounce " + json.dumps(rows))
     else:
-        ann = [e for e in dev if e.name in names]        # device-side pass ranges
-        kern = [e for e in dev if e.name not in names]
+        ann = [e for e in dev if e.name in passes]       # device-side pass ranges
+        kern = [e for e in dev if not is_range(e.name, passes)]
         per = {}
         for rng in ann:
             per[rng.name] = per.get(rng.name, 0.0) + sum(
@@ -254,7 +272,7 @@ def main(argv=None):
                       "render_scale": a.render_scale, "tex_streaming": a.tex_streaming,
                       "frame_ms": [round(x, 2) for x in frame_ms],
                       "median_ms_after_first": round(statistics.median(frame_ms[1:]), 2),
-                      **busy_share(kern, 3, wall_ms)}))
+                      **device_busy(kern, 3)}))
     return 0
 
 

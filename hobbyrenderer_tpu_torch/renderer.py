@@ -108,7 +108,7 @@ class Renderer:
         # fp32 everywhere: the raster transform's einsums must not drop to TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        with PROFILER.scope("Init/SceneLoad"):
+        with PROFILER.span("Init/SceneLoad"):
             if scene is not None:
                 self.scene = scene
             elif cfg.scene in (None, "", "cube"):
@@ -129,7 +129,7 @@ class Renderer:
         # device-to-host copies of the streaming feedback (one every 8th frame)
         self.feedback_syncs = 0
         env, env_sh, brdf_lut = self._load_environment()
-        with PROFILER.scope("Init/Upload"):
+        with PROFILER.span("Init/Upload"):
             self.gpu = build_scene_gpu(self.scene, self.device,
                                        max_lights=max(64, len(self.scene.lights) + 8),
                                        env_map=env, env_sh=env_sh, brdf_lut=brdf_lut,
@@ -203,7 +203,7 @@ class Renderer:
     def _build_rt(self, with_pool: bool):
         """The ray-tracing scene; with the light pool and the 16-wide BVH
         when ``with_pool``."""
-        with PROFILER.scope("Init/BVH"):
+        with PROFILER.span("Init/BVH"):
             t0 = time.perf_counter()
             rt = build_scene_rt(self.scene, self.device, gpu=self.gpu if with_pool else None)
             self.bvh_seconds = time.perf_counter() - t0
@@ -304,52 +304,52 @@ class Renderer:
                                               settings=dataclasses.replace(s, **updates))
 
     def render_frame(self, dt: float = 1.0 / 60.0):
-        self._poll_tune_file()
-        cfg = self.config
-        with PROFILER.scope("Frame/SceneUpdate"):
-            self.time_s += dt
-            self.scene.update(self.time_s)
-            # as the JAX Renderer: every instance and material is dirty from
-            # the load, so the first frame refits and refreshes too
-            dirty_rt = bool(self.scene.dirty_instances)
-            dirty_mat = bool(self.scene.dirty_materials)
-            self.gpu = update_instance_transforms(self.gpu, self.scene)
-            if dirty_mat:
-                self.gpu = update_material_constants(self.gpu, self.scene)
-        rt = self._model.rt
-        if dirty_mat and rt is not None and rt.lights is not None:
-            # animated emissive strength drives the light the emitter casts
-            self._model.rt = rt._replace(lights=refresh_pool_emissive(rt.lights, self.gpu,
-                                                                      rt.tri_mat))
-            self.pool_cdf_syncs += 1
-        if dirty_rt and self._model.rt is not None:
-            with PROFILER.scope("Frame/RTRefit"), torch.profiler.record_function("Frame/RTRefit"):
-                self._model.rt = refit_scene_rt(self._model.rt, self.gpu.inst_transform)
-        if self.streamer is not None:
-            # a finished tile-upload batch, applied at frame start
-            with PROFILER.scope("Frame/TexStreaming"), \
-                    torch.profiler.record_function("Frame/TexStreaming"):
-                self.gpu = dataclasses.replace(
-                    self.gpu, tex_stream=self.streamer.apply_updates(self.gpu.tex_stream),
-                    meta=self.gpu.meta)
-        with PROFILER.scope("Frame/ViewConstants"):
-            vc = self.view_constants()
-        with PROFILER.scope("Frame/Render"):
-            # the host matrix: the path tracer's camera-move reset compares it
-            view_proj = self.camera.view_constants(self.frame_index)["view_proj_no_jitter"]
-            ldr = self._model.render(self.gpu, vc, cfg.settings, dt, view_proj)
-        if self.streamer is not None and self.frame_index % 8 == 7:
-            # the feedback fetch, on this thread (the worker never touches a
-            # device tensor): one device-to-host copy every 8th frame
-            fb = self._model.last_stats.get("tex_feedback")
-            if fb is not None:
-                self.streamer.publish_feedback(fb.cpu().numpy())
-                self.feedback_syncs += 1
-        self.camera.end_frame()
-        self.camera_state.publish(self.camera, self._scene_key)
-        self.frame_index += 1
-        self.last_frame = ldr
-        PROFILER.end_frame()
+        with PROFILER.frame():
+            self._poll_tune_file()
+            cfg = self.config
+            with PROFILER.span("Frame/SceneUpdate"):
+                self.time_s += dt
+                self.scene.update(self.time_s)
+                # as the JAX Renderer: every instance and material is dirty from
+                # the load, so the first frame refits and refreshes too
+                dirty_rt = bool(self.scene.dirty_instances)
+                dirty_mat = bool(self.scene.dirty_materials)
+                self.gpu = update_instance_transforms(self.gpu, self.scene)
+                if dirty_mat:
+                    self.gpu = update_material_constants(self.gpu, self.scene)
+                rt = self._model.rt
+                if dirty_mat and rt is not None and rt.lights is not None:
+                    # animated emissive strength drives the light the emitter casts
+                    self._model.rt = rt._replace(lights=refresh_pool_emissive(
+                        rt.lights, self.gpu, rt.tri_mat))
+                    self.pool_cdf_syncs += 1
+            if dirty_rt and self._model.rt is not None:
+                with PROFILER.span("Frame/RTRefit"):
+                    self._model.rt = refit_scene_rt(self._model.rt, self.gpu.inst_transform)
+            if self.streamer is not None:
+                # a finished tile-upload batch, applied at frame start
+                with PROFILER.span("Frame/TexStreaming"):
+                    self.gpu = dataclasses.replace(
+                        self.gpu, tex_stream=self.streamer.apply_updates(self.gpu.tex_stream),
+                        meta=self.gpu.meta)
+            with PROFILER.span("Frame/ViewConstants"):
+                vc = self.view_constants()
+            with PROFILER.span("Frame/Render"):
+                # the host matrix: the path tracer's camera-move reset compares it
+                view_proj = self.camera.view_constants(self.frame_index)["view_proj_no_jitter"]
+                ldr = self._model.render(self.gpu, vc, cfg.settings, dt, view_proj)
+            if self.streamer is not None and self.frame_index % 8 == 7:
+                # the feedback fetch, on this thread (the worker never touches a
+                # device tensor): one device-to-host copy every 8th frame
+                fb = self._model.last_stats.get("tex_feedback")
+                if fb is not None:
+                    with PROFILER.span("Frame/TexFeedback"):
+                        self.streamer.publish_feedback(fb.cpu().numpy())
+                    self.feedback_syncs += 1
+            self.camera.end_frame()
+            self.camera_state.publish(self.camera, self._scene_key)
+            self.frame_index += 1
+            self.last_frame = ldr
         return ldr
 
     def synchronize(self):
