@@ -85,6 +85,12 @@ lines to this process.
 Any failed check raises: the script then exits nonzero without its final
 line.
 
+Phase 33 runs right after the build: the sky's in-scatter march
+(csrc/sky_march.cu, a kernel of the port alone) against its plain version
+at pt.still's 8,294,400 lanes (with the sun disk, then under a mask keeping
+~40% of them) and at sky_radiance_fast's 480x270 grid of a 1080p image, bit
+for bit, with ms a call of both; phase 18 counts its launches, one a bounce.
+
 Kernels: K1 tile raster and K5 depth-only tile raster
 (csrc/raster_resolve.cu), K2 ReSTIR candidates (csrc/restir_candidates.cu),
 K3 bvh16 walk (csrc/bvh16_walk.cu), K4 any hit (csrc/beam_any_hit.cu), K6
@@ -289,7 +295,7 @@ def rel_err(got, ref):
 
 PTXAS_KERNELS = ("raster_units_kernel", "beam_any_hit_kernel",
                  "restir_candidates_kernel", "bvh16_walk_kernel", "closest_blocks_kernel",
-                 "leaf_gather_kernel", "int_fetch_kernel")
+                 "leaf_gather_kernel", "int_fetch_kernel", "sky_march_kernel")
 CHECKSUM_RTOL = 1e-5     # sums in another order; a skipped row or step moves it >= 1/64
 K89_GATE_ITERS = 4096    # K8's and K9's scaling gates read at 4,096 / 2,048 / 1,024 steps
 ONE_CTA_AN_SM_BYTES = 200_000    # shared bytes a CTA that leave room for one CTA an SM
@@ -625,6 +631,7 @@ def phase_pt_main(Renderer, Config, reset_counts, counts, n_frames=8):
     held bit for bit against the plain walk on the same inputs, after the
     main path's counts are read."""
     from hobbyrenderer_tpu_torch.models import pathtracer as ptmod
+    from hobbyrenderer_tpu_torch.ops import atmosphere as atm
     from hobbyrenderer_tpu_torch.ops import bvh16 as b16ops
     RS = 960 * 540
     walks = {}
@@ -655,6 +662,7 @@ def phase_pt_main(Renderer, Config, reset_counts, counts, n_frames=8):
 
     ptmod.trace_paths = strict
     reset_counts()
+    sky0 = atm.launches
     frame_ms, stats, per_frame = [], [], []
     try:
         for i in range(n_frames):
@@ -670,6 +678,7 @@ def phase_pt_main(Renderer, Config, reset_counts, counts, n_frames=8):
         ptmod.trace_paths = orig
         b16ops.bvh16_walk = k3_orig
     launches = counts()
+    sky_launches = atm.launches - sky0
     ldr = r.last_frame
     accum = r._model.accum
     png = os.path.join(tempfile.gettempdir(), "chip_smoke_stress_pt_540p.png")
@@ -685,7 +694,8 @@ def phase_pt_main(Renderer, Config, reset_counts, counts, n_frames=8):
     log(f"phase18 path tracer main path stress 960x540 spp 1 x{n_frames}: setup {setup:.1f} s "
         f"(BVH+beam table+bvh16+light pool {r.bvh_seconds:.1f} s), frame ms "
         f"{[round(x, 2) for x in frame_ms]}, median frames 2-{n_frames} {med:.2f} ms, "
-        f"{msamples:.4f} Msamples/s, launches {launches}, per frame {per_frame}, "
+        f"{msamples:.4f} Msamples/s, launches {launches}, per frame {per_frame}, sky kernel "
+        f"launches {sky_launches}, "
         f"pt_dropped_lanes per frame {[s_['pt_dropped_lanes'] for s_ in stats]}, K3 steps "
         f"budget ({ptmod.traceops.b16ops.UNCAPPED_STEPS}) spent: closest hit "
         f"{share('rt_k3_lanes_pt', 'rt_k3_capped_pt')}, NEE "
@@ -696,6 +706,7 @@ def phase_pt_main(Renderer, Config, reset_counts, counts, n_frames=8):
     assert launches["K3"] >= 2 * 8 * n_frames and all(f.get("K3", 0) > 0 for f in per_frame), \
         per_frame
     assert sum(v for k, v in launches.items() if k != "K3") == 0, launches
+    assert sky_launches == 8 * n_frames, f"{sky_launches} sky launches: one a bounce expected"
     assert sorted(walks) == ["NEE compacted", "closest full width"], sorted(walks)
     k3_rows = []
     for name, walk in sorted(walks.items()):
@@ -717,7 +728,8 @@ def phase_pt_main(Renderer, Config, reset_counts, counts, n_frames=8):
         assert not any(x["mis"].values()), f"K3 {name} is not bit-exact with its plain version"
         assert x["repeat_equal"], f"three K3 launches on {name} gave different outputs"
     return dict(setup=setup, ms=med, msamples=msamples, launches=launches,
-                dropped=[s_["pt_dropped_lanes"] for s_ in stats], k3_rows=k3_rows)
+                sky_launches=sky_launches, dropped=[s_["pt_dropped_lanes"] for s_ in stats],
+                k3_rows=k3_rows)
 
 
 def _ldr01(ldr):
@@ -1797,6 +1809,75 @@ SHARD_INDIRECT_FRAMES = 3   # frames of each of the flagship's other indirect mo
 HALOS = (1, 8, 32)
 
 
+SKY_PT_LANES = 1920 * 1080 * 4      # pt.still's wavefront: 1080p at 4 samples a pixel
+SKY_FN_A_STEP = 11     # full-precision functions a march step: 8 expf, powf, acosf, sqrtf
+SFU_A_CLOCK = 132 * 16                # H100 SXM: 16 special-function results a clock an SM
+
+
+def sky_bound(n, clock_mhz, masked=False):
+    """(bound_ms, by) of the sky kernel on n lanes: its bytes (a direction
+    in, a radiance out, a mask byte) over 3.35 TB/s against its 32 steps'
+    full-precision functions, each at least one special-function result,
+    at 132 x 16 a clock."""
+    from hobbyrenderer_tpu_torch.ops.atmosphere import MARCH_STEPS
+    tb = n * (24 + (1 if masked else 0)) / HBM_BYTES_PER_S * 1e3
+    tf = n * MARCH_STEPS * SKY_FN_A_STEP / (SFU_A_CLOCK * clock_mhz * 1e6) * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "transcendentals")
+
+
+def phase_sky_kernel(card, clock_mhz):
+    """Phase 33: the sky's march (csrc/sky_march.cu) against its plain
+    version on the card: pt.still's 8,294,400 lanes (the primary bounce,
+    with the sun disk; and the same lanes under a mask keeping ~40%, as the
+    path tracer passes its missed lanes), and sky_radiance_fast's 480x270
+    grid of a 1080p direction image (every 4th pixel, a strided view, no
+    disk). Mismatched lanes (any bit), the largest relative difference,
+    and ms a call (CUDA events, median of 5) of the kernel and the plain
+    march; a second launch must give the same bits."""
+    from hobbyrenderer_tpu_torch.config import Config
+    from hobbyrenderer_tpu_torch.ops import atmosphere as atm
+    settings = Config().settings
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(33)
+    sun = torch.tensor(settings.sun_direction, dtype=torch.float32, device=dev)
+    img = torch.randn((1080, 1920, 3), generator=gen, device=dev)
+    cases = [("pt 8294400 lanes, disk", torch.randn((SKY_PT_LANES, 3), generator=gen,
+                                                    device=dev), True, None),
+             ("sky_radiance_fast 480x270 grid", img[::4, ::4][:270, :480], False, None)]
+    keep = torch.rand((SKY_PT_LANES,), generator=gen, device=dev) < 0.4
+    cases.append(("pt 8294400 lanes, disk, ~40% masked", cases[0][1], True, keep))
+    rows = {}
+    for name, d, disk, mask in cases:
+        def kernel():
+            return atm.sky_radiance_lut(d, sun, settings, with_sun_disk=disk, mask=mask)
+
+        def plain():
+            return atm.sky_radiance_lut_reference(d, sun, settings, with_sun_disk=disk,
+                                                  mask=mask)
+        got, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        mis = int((got != ref).any(-1).sum())
+        rel = float(((got - ref).abs() / ref.abs().clamp(min=1e-30)).max())
+        n = d.reshape(-1, 3).shape[0]
+        lanes = n if mask is None else int(mask.sum())
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        bnd = sky_bound(n, clock_mhz, masked=mask is not None)
+        log(f"phase33 sky kernel, {name} on {card}: mismatched lanes {mis} of {n} (marched "
+            f"{lanes}), largest relative difference {rel:.3g}, two launches equal "
+            f"{torch.equal(got, again)}; kernel {ms:.4f} ms, plain march {plain_ms:.2f} ms, "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        assert torch.equal(got, again), f"sky kernel {name}: two launches differ"
+        assert mis == 0, f"sky kernel {name}: {mis} lanes differ from the plain march"
+        if mask is not None:
+            assert not got[~mask].any(), f"sky kernel {name}: a lane outside the mask is not 0"
+        rows[name] = dict(lanes=n, marched=lanes, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                          bound_by=bnd[1], mismatched=mis, max_rel_err=rel)
+        del got, again, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_counters():
     """Each kernel's launch count: {name: (module, attribute)}."""
     from hobbyrenderer_tpu_torch.ops import beam as beamops
@@ -2391,6 +2472,9 @@ def main():
                                             for k in PTXAS_KERNELS if k in name), name))
                 elif "registers" in line or "spill" in line:
                     log("  ptxas:   " + line.strip())
+
+    # ---- phase 33: the sky's march against its plain version ----------------
+    sky = phase_sky_kernel(smi.stdout.strip().splitlines()[0], clock_mhz)
 
     # ---- capture the first 1080p stress frame's kernel inputs ---------------
     t0 = time.perf_counter()
@@ -3157,7 +3241,9 @@ def main():
         wk_entry("leaf_gather", "K7", "scripts/bench_wkernels.py:33",
                  [v[0] for v in bw.K7_VARIANTS]),
         wk_entry("int_fetch", "K8", "scripts/bench_wkernels.py:72", ["K8 Ip=4480", "K8 Ip=512"]),
-        wk_entry("int_fetch_hc", "K9", "scripts/bench_wkernels.py:100", ["K9 Ip=4480"])]}
+        wk_entry("int_fetch_hc", "K9", "scripts/bench_wkernels.py:100", ["K9 Ip=4480"]),
+        dict(name="sky_march", route="cuda", source="hobbyrenderer_tpu_torch/csrc/sky_march.cu",
+             replaces=None, launches_pt=pt["sky_launches"], calls=sky)]}
     log("path tracer 960x540: " + json.dumps({k: pt[k] for k in ("setup", "ms", "msamples")}))
     log(f"env + animated flagship 1080p on {card}: " + json.dumps(
         {"setup_s": ea["setup_s"], "ms": ea["ms"], "taau_ms": tu["ms"], "busy": ea["busy"],

@@ -1,7 +1,8 @@
 """Build and bind the package's hand-written CUDA kernels (csrc/*.cu:
 K1 and K5 in raster_resolve.cu, K2 restir_candidates.cu, K3 bvh16_walk.cu,
-K4 beam_any_hit.cu, K6 closest_blocks.cu, and the step microbenchmarks
-K7-K9 in wkernels.cu).
+K4 beam_any_hit.cu, K6 closest_blocks.cu, the step microbenchmarks
+K7-K9 in wkernels.cu, and sky_march.cu, the sky's in-scatter march, a
+kernel of the port alone).
 
 The sources have a plain C interface. At first use each is compiled by its
 own ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false`` (all at
@@ -31,7 +32,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SOURCES = ("raster_resolve.cu", "beam_any_hit.cu", "restir_candidates.cu",
-           "bvh16_walk.cu", "closest_blocks.cu", "wkernels.cu")
+           "bvh16_walk.cu", "closest_blocks.cu", "wkernels.cu", "sky_march.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 
@@ -70,6 +71,9 @@ _SIGNATURES = {
     "hr_wk_int_fetch": (_VP,) * 4 + (_I,) * 7 + (_VP,),
     # hc, cluster, smem, n_out
     "hr_wk_int_fetch_max_clusters": (_I,) * 3 + (_VP,),
+    # d, mask, sun, ms, out, n, with_disk, ms_y0, ms_y1, ms_fy, ms_1mfy, r0, r0sq,
+    # h_obs, e0, e1, e2, cos_disk, inv_omega, stream
+    "hr_sky_march": (_VP,) * 5 + (_I,) * 4 + (_F,) * 10 + (_VP,),
 }
 
 

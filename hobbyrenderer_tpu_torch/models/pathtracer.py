@@ -58,9 +58,10 @@ CAP_FRACS = (0.625, 0.375, 0.25, 0.125, 0.125)
 COMPACT_MIN_LANES = 32768
 COMPACT_MIN_CAP = 4096
 # a bounce's counts (its row of the frame's counter tensor): the lanes live
-# into it (its closest-hit K3 lanes), those that spent K3's step budget, and
-# its NEE any-hit K3 lanes and their capped ones
-BOUNCE_COUNTS = ("pt_live", "pt_capped", "pt_nee", "pt_nee_capped")
+# into it (its closest-hit K3 lanes), those that spent K3's step budget, its
+# NEE any-hit K3 lanes and their capped ones, and the missed lanes whose
+# procedural sky it marched
+BOUNCE_COUNTS = ("pt_live", "pt_capped", "pt_nee", "pt_nee_capped", "pt_sky")
 
 
 def camera_rays(vc, height: int, width: int, jitter_uv):
@@ -165,7 +166,9 @@ def _bounce(gpu, rt: SceneRT, vc, settings, height: int, p: _Paths, bounce: int,
             # pass-through: prev_pdf <= 0)
             sky = torch.where((prev_pdf <= 0.0)[..., None], sky, 0.0)
     else:
-        sky = skyops.sky_radiance(d, sun_dir, settings, with_sun_disk=bounce == 0)
+        # only the missed lanes read the sky: the others are not marched
+        sky = skyops.sky_radiance(d, sun_dir, settings, with_sun_disk=bounce == 0, mask=miss)
+        torch.sum(miss, 0, out=stats[4])
     radiance = radiance + torch.where(miss[..., None], throughput * sky, 0.0)
     active = active & (hit.tri >= 0)
 

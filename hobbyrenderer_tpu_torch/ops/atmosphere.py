@@ -2,10 +2,13 @@
 hobbyrenderer_tpu/ops/atmosphere.py).
 
 The transmittance and multiple-scattering LUTs are the same host numpy
-precompute; sky radiance is the same 32-step in-scatter march, in torch.
-The constant tables go to a device once (``device_tables``) and the
-per-call constants are filled on the device, so a sky evaluation uploads
-nothing (an upload from host memory waits for the stream)."""
+precompute; sky radiance is the same 32-step in-scatter march: on a CUDA
+tensor one hand-written kernel, csrc/sky_march.cu (a thread a lane, the
+march in registers), on a CPU tensor its plain version in torch
+(``sky_radiance_lut_reference``). The constant tables go to a device once
+(``device_tables``) and the per-call constants are filled on the device or
+handed to the kernel as arguments, so a sky evaluation uploads nothing (an
+upload from host memory waits for the stream)."""
 
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from hobbyrenderer_tpu_torch import kernels
 from hobbyrenderer_tpu_torch.utils import tmath as tm
 
 RB = 6360.0
@@ -32,6 +36,8 @@ T_MU = 256
 T_R = 64
 MS_RES = 32
 MARCH_STEPS = 32
+
+launches = 0      # sky kernel launches (CPU reference calls are not counted)
 
 
 class AtmosphereLUTs(NamedTuple):
@@ -134,18 +140,22 @@ def _filled(values, device) -> torch.Tensor:
                         for v in values])
 
 
+def _ms_rows(r: float):
+    """The multiple-scattering table's two rows at observer radius r and the
+    weight of the second: host constants, rounded to f32 like the x side."""
+    y = min(max(np.float32((r - RB) / H_ATM * MS_RES - 0.5), np.float32(0.0)),
+            np.float32(MS_RES - 1.0))
+    y0 = int(np.floor(y))
+    return y0, min(y0 + 1, MS_RES - 1), float(np.float32(y - np.float32(y0)))
+
+
 def _sample_ms(r: float, mu_s, device):
     """Multiple-scattering factor at (observer radius r, sun cosine mu_s)."""
     x = torch.clamp((mu_s * 0.5 + 0.5) * MS_RES - 0.5, 0.0, MS_RES - 1.0)
-    # the observer's row: a host constant, rounded to f32 like the x side
-    y = min(max(np.float32((r - RB) / H_ATM * MS_RES - 0.5), np.float32(0.0)),
-            np.float32(MS_RES - 1.0))
+    y0, y1, fy = _ms_rows(r)
     x0 = torch.floor(x).to(torch.int64)
-    y0 = int(np.floor(y))
     x1 = torch.clamp(x0 + 1, max=MS_RES - 1)
-    y1 = min(y0 + 1, MS_RES - 1)
     fx = (x - x0)[..., None]
-    fy = float(np.float32(y - np.float32(y0)))
     m = device_tables(device)["multiscatter"]
 
     def tap(row: int, col):
@@ -200,9 +210,57 @@ def _phase_mie(c, g=MIE_G):
 
 
 def sky_radiance_lut(d, sun_dir, settings, observer_h_km: float = 0.2,
-                     with_sun_disk: bool = True):
-    """Sky radiance for unit view dirs d (..., 3); sun_dir (3,) tensor is the
-    travel direction of sunlight."""
+                     with_sun_disk: bool = True, mask=None):
+    """Sky radiance for view dirs d (..., 3) f32; sun_dir (3,) tensor is the
+    travel direction of sunlight. With ``mask`` (d.shape[:-1] bool) only
+    the lanes in it are marched; the others read 0."""
+    if d.device.type == "cpu":
+        return sky_radiance_lut_reference(d, sun_dir, settings, observer_h_km, with_sun_disk,
+                                          mask)
+    return _sky_march_cuda(d, sun_dir, settings, observer_h_km, with_sun_disk, mask)
+
+
+def _sky_march_cuda(d, sun_dir, settings, observer_h_km, with_sun_disk, mask):
+    global launches
+    shape = d.shape
+    if shape[-1] != 3:
+        raise ValueError(f"d must have shape (..., 3), got {tuple(shape)}")
+    dd = d.reshape(-1, 3).contiguous()       # sky_radiance_fast hands a strided grid
+    n = dd.shape[0]
+    kernels.require(dd, "d", torch.float32, (n, 3))
+    sun = sun_dir.reshape(-1).contiguous()
+    kernels.require(sun, "sun_dir", torch.float32, (3,))
+    ms = device_tables(d.device)["multiscatter"]
+    if mask is not None:
+        if tuple(mask.shape) != tuple(shape[:-1]):
+            raise ValueError(f"mask must have shape {tuple(shape[:-1])}, "
+                             f"got {tuple(mask.shape)}")
+        mask = mask.reshape(-1).contiguous()
+        kernels.require(mask, "mask", torch.bool, (n,))
+    if sun.device != d.device or (mask is not None and mask.device != d.device):
+        raise ValueError("d, sun_dir and mask must be on the same device")
+    # the host scalars, rounded to f32 as the plain version's ops round them
+    r0 = RB + observer_h_km
+    y0, y1, fy = _ms_rows(r0)
+    e_sun = np.asarray(settings.sun_color, np.float32) * np.float32(settings.sun_intensity)
+    cos_r, omega = sun_disk_cos_omega(settings.sun_angular_radius)
+    inv_omega = np.float32(1.0) / np.float32(max(omega, 1e-6))
+    out = torch.empty((n, 3), dtype=torch.float32, device=d.device)
+    err = kernels.library().hr_sky_march(
+        dd.data_ptr(), None if mask is None else mask.data_ptr(), sun.data_ptr(),
+        ms.data_ptr(), out.data_ptr(), n, int(bool(with_sun_disk)), y0, y1, fy,
+        float(np.float32(1 - fy)), float(np.float32(r0)), float(np.float32(r0 * r0)),
+        float(np.float32(observer_h_km)), *(float(e) for e in e_sun), cos_r, float(inv_omega),
+        kernels.stream_handle(d.device))
+    kernels.check(err, "hr_sky_march")
+    launches += 1
+    return out.reshape(shape)
+
+
+def sky_radiance_lut_reference(d, sun_dir, settings, observer_h_km: float = 0.2,
+                               with_sun_disk: bool = True, mask=None):
+    """Plain PyTorch version of the march, as PyTorch ops over (..., 32)
+    and (..., 32, 3) tensors; the kernel repeats it op for op."""
     dev = d.device
     d = tm.normalize(d)
     to_sun = -tm.normalize(sun_dir)
@@ -258,4 +316,6 @@ def sky_radiance_lut(d, sun_dir, settings, observer_h_km: float = 0.2,
         T_sun = sun_transmittance_analytic(
             torch.full((), observer_h_km, dtype=torch.float32, device=dev), mu)
         L = torch.where(disk[..., None], E_sun / max(omega, 1e-6) * T_sun, L)
+    if mask is not None:
+        L = torch.where(mask[..., None], L, 0.0)
     return L

@@ -16,10 +16,10 @@ from hobbyrenderer_tpu_torch.utils import tmath as tm
 SKY_FAST_SCALE = 4
 
 
-def sky_radiance(d, sun_dir, settings, with_sun_disk: bool = True):
+def sky_radiance(d, sun_dir, settings, with_sun_disk: bool = True, mask=None):
     """Sky radiance for directions d (..., 3); sun_dir is the direction the
-    sunlight travels."""
-    return atm.sky_radiance_lut(d, sun_dir, settings, with_sun_disk=with_sun_disk)
+    sunlight travels. Lanes outside ``mask`` (d.shape[:-1] bool) read 0."""
+    return atm.sky_radiance_lut(d, sun_dir, settings, with_sun_disk=with_sun_disk, mask=mask)
 
 
 def sky_radiance_fast(d, sun_dir, settings, with_sun_disk: bool = True):
