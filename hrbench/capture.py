@@ -14,7 +14,9 @@ path tracer's ``models.pathtracer.trace_paths``, ``_bounce`` and
   for a seeded sample of pixels, every sample's lane at every bounce (its
   state going in and coming out), the frame's radiance, the running
   average before and after, the exposure and the LDR frame at those
-  pixels: device-side gathers, no copy to the host.
+  pixels: device-side gathers, no copy to the host. Set-up arms its last
+  warm-up frame too and then ``reset``s, so that the window's armed frame
+  finds its sizes already allocated and its kernels loaded.
 - While ``shapes`` is on (the traced frames), each K3 call records its
   sizes, from which ``roofline.py`` counts the bytes.
 
@@ -31,6 +33,7 @@ SAMPLE_PIXELS = 256         # pixels whose every sample is followed
 class Capture:
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
+        self.seed = seed
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed % (1 << 63))
         self.armed = False
@@ -56,6 +59,11 @@ class Capture:
         for owner, name, fn in reversed(self._saved):
             setattr(owner, name, fn)
         self._saved = []
+
+    def reset(self):
+        """Forget what an armed frame kept, and start the seeded draws over."""
+        self.walks, self.path, self._before = [], None, None
+        self.gen.manual_seed(self.seed % (1 << 63))
 
     def _wrap(self, owner, name, pre=None, post=None):
         real = getattr(owner, name)

@@ -1,8 +1,12 @@
 """The comparison that decides ``correct``.
 
 What the armed frame captured (``capture.py``) is held against the plain
-reference (``reference.py``, ``ref_path.py``) on the world it works out
-itself from the scene snapshot:
+reference on the world it works out itself from the scene snapshot: the
+triangles of ``reference.py`` for the walks, and for the path tracer the
+configuration's reference module (``ref_path.py`` by default), handed in
+as ``ref``, which offers ``World``, ``T_MIN``, ``rand3``,
+``primary_dirs``, ``bounce``, ``finish``, ``capacity_keep`` and
+``tonemap``:
 
 - ``closest_bad_share`` / ``shadow_bad_share``: of the sampled K3 walks'
   closest-hit and any-hit rays, the share whose hit or miss (occlusion)
@@ -19,7 +23,9 @@ itself from the scene snapshot:
   into a bounce is not what the step before handed on: bounce 0 against
   the reference's primary rays; later bounces against the previous
   bounce's output, through the wavefront's capacity roulette (a lane kept
-  where its uniform is under p_keep, its throughput over p_keep).
+  where its uniform is under p_keep, its throughput over p_keep). Where the
+  program's count of frames accumulated before the armed one is not the
+  harness's (``frames_before``), every lane is counted bad.
 - ``pixel_bad_share``: of the sampled pixels, the share whose frame
   radiance is not the mean over samples of what the bounces added, whose
   running average is not the last one blended with it at weight 1 / (n +
@@ -39,7 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hrbench import ref_path, reference
+from hrbench import reference
 
 T_TOL = 1e-4
 TMAX_CAP = 1e30             # a closest-hit walk's interval: (T_MIN, TMAX_CAP)
@@ -118,58 +124,60 @@ def _close(a, b, rtol, atol):
     return ok.all(-1)
 
 
-def shade_lanes(W, rec: dict, camera: dict, rr_start: int, control: bool):
+def shade_lanes(ref, W, rec: dict, camera: dict, rr_start: int, control: bool):
     """(compared, bad) lanes of one captured bounce against the
-    reference's bounce run on the same state going in."""
+    reference ``ref``'s bounce run on the same state going in."""
     sel = torch.nonzero(rec["found"]).reshape(-1)
     if sel.numel() == 0:
         return 0, 0
     inp = {k: v[sel] for k, v in rec["inp"].items()}
     prog = {k: v[sel] for k, v in rec["out"].items()}
     n = int(sel.numel())
-    t, tri = reference.trace(W.tris, inp["o"], inp["d"], torch.full((n,), ref_path.T_MIN,
+    t, tri = reference.trace(W.tris, inp["o"], inp["d"], torch.full((n,), ref.T_MIN,
                                                                     device=W.device),
                              torch.full((n,), TMAX_CAP, device=W.device), with_tri=True)
     u, v = reference.barycentrics(W.tris, tri, inp["o"], inp["d"])
     lanes = dict(inp, radiance=torch.zeros_like(inp["radiance"]))
 
     def run(dtype):
-        out, sh = ref_path.bounce(W, lanes, rec["b"], (t, tri, u, v), camera["proj11"],
-                                  camera["height"], rr_start, dtype=dtype)
+        out, sh = ref.bounce(W, lanes, rec["b"], (t, tri, u, v), camera["proj11"],
+                             camera["height"], rr_start, dtype=dtype)
         occ = torch.zeros((n,), dtype=torch.bool, device=W.device)
         live = torch.nonzero(sh["live"]).reshape(-1)
         if live.numel():
             occ[live] = torch.isfinite(reference.trace(
                 W.tris, sh["o"][live], sh["d"][live],
-                torch.full((live.numel(),), ref_path.T_MIN, device=W.device),
+                torch.full((live.numel(),), ref.T_MIN, device=W.device),
                 sh["t_max"][live], any_hit=True))
-        return ref_path.finish(out, occ)
-    ref = run(torch.float32)
+        return ref.finish(out, occ)
+    want = run(torch.float32)
     if control:
         prog = run(torch.bfloat16)
         prog_inc = prog["radiance"]
     else:
         prog_inc = prog["radiance"] - inp["radiance"]
     # the bounce's own radiance: the subtraction leaves a few ulps of what came in
-    rad_ok = _close(prog_inc, ref["radiance"], SHADE_RTOL,
+    rad_ok = _close(prog_inc, want["radiance"], SHADE_RTOL,
                     1e-6 + 4.0 * float(np.finfo(np.float32).eps) * inp["radiance"].abs())
-    both = prog["active"] & ref["active"]
-    scale = torch.clamp(ref["o"].abs().amax(-1, keepdim=True), min=1.0)
-    live_ok = (_close(prog["d"], ref["d"], 0.0, DIR_ATOL)
-               & _close(prog["o"], ref["o"], 0.0, SHADE_RTOL * scale)
-               & _close(prog["throughput"], ref["throughput"], SHADE_RTOL, 1e-6)
-               & _close(prog["sigma_t"], ref["sigma_t"], SHADE_RTOL, 1e-6)
-               & _close(prog["prev_pdf"], ref["prev_pdf"], SHADE_RTOL, 1e-6)
-               & (prog["inside"] == ref["inside"]))
-    ok = rad_ok & (prog["active"] == ref["active"]) & (~both | live_ok)
+    both = prog["active"] & want["active"]
+    scale = torch.clamp(want["o"].abs().amax(-1, keepdim=True), min=1.0)
+    live_ok = (_close(prog["d"], want["d"], 0.0, DIR_ATOL)
+               & _close(prog["o"], want["o"], 0.0, SHADE_RTOL * scale)
+               & _close(prog["throughput"], want["throughput"], SHADE_RTOL, 1e-6)
+               & _close(prog["sigma_t"], want["sigma_t"], SHADE_RTOL, 1e-6)
+               & _close(prog["prev_pdf"], want["prev_pdf"], SHADE_RTOL, 1e-6)
+               & (prog["inside"] == want["inside"]))
+    ok = rad_ok & (prog["active"] == want["active"]) & (~both | live_ok)
     return n, int((~ok).sum())
 
 
-def compare_paths(W, path: dict, camera: dict, rr_start: int, control: bool = False) -> dict:
+def compare_paths(ref, W, path: dict, camera: dict, rr_start: int,
+                  control: bool = False) -> dict:
     """``shade_*``, ``chain_bad_share`` and ``pixel_bad_share`` of the path
-    tracer's armed frame. ``camera``: pos, target, fov_y, proj11, height,
-    width, frame_index, frames_before (frames since the accumulation
-    started)."""
+    tracer's armed frame against the reference module ``ref`` on its world
+    ``W``. ``camera``: pos, target, fov_y, proj11, height, width,
+    frame_index, frames_before (frames since the accumulation restarted,
+    by the traffic mix)."""
     if path is None or not path["bounces"] or "ldr" not in path:
         return {"shade_bad_share": 1.0, "shade_lanes": 0, "chain_bad_share": 1.0,
                 "pixel_bad_share": 1.0}
@@ -182,10 +190,10 @@ def compare_paths(W, path: dict, camera: dict, rr_start: int, control: bool = Fa
 
     # bounce 0: every sample's primary ray
     r0 = recs[0]
-    ju, jv, _ = ref_path.rand3(pix_l, frame_l, 0)
-    d_ref = ref_path.primary_dirs(np.asarray([0.0, 1.0, 0.0]), camera["pos"], camera["target"],
-                                  camera["fov_y"], camera["width"], camera["height"],
-                                  camera["frame_index"], pix_l, ju, jv)
+    ju, jv, _ = ref.rand3(pix_l, frame_l, 0)
+    d_ref = ref.primary_dirs(np.asarray([0.0, 1.0, 0.0]), camera["pos"], camera["target"],
+                             camera["fov_y"], camera["width"], camera["height"],
+                             camera["frame_index"], pix_l, ju, jv)
     i0 = dict(r0["inp"])
     found0 = r0["found"]
     cam = torch.as_tensor(np.asarray(camera["pos"], np.float32), device=dev)
@@ -202,8 +210,8 @@ def compare_paths(W, path: dict, camera: dict, rr_start: int, control: bool = Fa
     for a, z in zip(recs, recs[1:]):
         alive = a["found"] & a["out"]["active"]
         if z["size"] != a["size"]:
-            u_c, p_keep = ref_path.capacity_keep(pix_l, frame_l, z["b"], z["size"],
-                                                 int(a["n_out"]))
+            u_c, p_keep = ref.capacity_keep(pix_l, frame_l, z["b"], z["size"],
+                                            int(a["n_out"]))
             expect = alive & (u_c < p_keep)
         else:
             p_keep, expect = 1.0, alive
@@ -225,11 +233,13 @@ def compare_paths(W, path: dict, camera: dict, rr_start: int, control: bool = Fa
         chain_bad += int(bad.sum())
         if z["b"] != a["b"] + 1:
             chain_bad += K * spp
+    if path["accum_index"] != camera["frames_before"]:
+        chain_bad = chain_n
 
     # the bounces themselves
     shade_n = shade_bad = 0
     for rec in recs:
-        n, nb = shade_lanes(W, rec, camera, rr_start, control)
+        n, nb = shade_lanes(ref, W, rec, camera, rr_start, control)
         shade_n += n
         shade_bad += nb
 
@@ -253,10 +263,10 @@ def compare_paths(W, path: dict, camera: dict, rr_start: int, control: bool = Fa
         lo = torch.bfloat16
         rad = (added.to(lo).reshape(K, spp, 3).sum(1) / spp).float()
         acc = blend(path["accum_before"].to(lo), rad.to(lo)).float()
-        ldr = ref_path.tonemap(acc.to(lo), path["exposure"].to(lo))
+        ldr = ref.tonemap(acc.to(lo), path["exposure"].to(lo))
     ok_rad = _close(rad, rad_ref, PIXEL_RTOL, slack)
     ok_acc = _close(acc, blend(path["accum_before"], rad), PIXEL_RTOL, 1e-7)
-    ldr_ref = ref_path.tonemap(acc, path["exposure"])
+    ldr_ref = ref.tonemap(acc, path["exposure"])
     ok_ldr = ((ldr.to(torch.int32) - ldr_ref.to(torch.int32)).abs() <= 1).all(-1)
     pixel_bad = int((~(ok_rad & ok_acc & ok_ldr)).sum())
     return {"shade_bad_share": shade_bad / max(shade_n, 1), "shade_lanes": shade_n,

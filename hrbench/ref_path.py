@@ -256,12 +256,16 @@ def _mip_chain(img: np.ndarray) -> list:
     return [np.clip(np.round(lv), 0, 255).astype(np.uint8) for lv in out]
 
 
+snapshot = reference.snapshot_scene
+
+
 class World:
     """Everything the reference shades against, from the snapshot: the
     triangles and their attributes, materials, texel chains, the light pool
-    and the sky's settings."""
+    and the sky's settings. ``scene_time`` is ignored: the scenes this
+    reference covers are static (``snapshot`` refuses an animated one)."""
 
-    def __init__(self, snap: dict, settings: dict, device):
+    def __init__(self, snap: dict, settings: dict, device, scene_time: float = 0.0):
         dev = torch.device(device)
         self.device = dev
         self.settings = settings

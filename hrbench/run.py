@@ -3,13 +3,31 @@
     python3 -m hrbench.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 The cell (``BENCHMARK.json``'s ``workloads``) names a configuration
-(``configs/<name>.json``: the renderer's settings and scene) and a traffic
-mix (``traffic/<name>.json``, read by ``traffic.py``). The run:
+(``configs/<name>.json``) and a traffic mix (``traffic/<name>.json``, read
+by ``traffic.py``). A configuration's file holds:
+
+- ``renderer``: the ``Config`` keywords (mode, size, samples a frame);
+- ``settings``: the renderer settings, handed to the program and to the
+  reference alike;
+- ``scene``: its ``kind`` selects ``scenes/<kind>.py``, whose
+  ``make(scene, overrides, tmpdir) -> (scene, config_kwargs)`` builds the
+  scene from the rest of the keys; ``config_kwargs`` are the ``Config``
+  keywords the kind sets itself (the scene's name, a file it wrote under
+  ``tmpdir``), and a keyword that ``renderer`` sets too is an error;
+- ``reference`` (default ``ref_path``): the plain reference, a module
+  ``<reference>.py`` beside this one that offers ``snapshot(scene)``,
+  ``World(snap, settings, device, scene_time)`` and the steps the check
+  calls (``check.py``);
+- ``warmup_frames``, ``trace_frames``.
+
+An unknown scene kind or reference stops the run before set-up. The run:
 
 1. set-up: builds the scene, the Renderer (upload, BVH, kernel library)
    with the configuration's settings, and renders the configuration's
-   warm-up frames; ``setup_s`` runs from process start to the first timed
-   frame;
+   warm-up frames, the last of them armed as the window's armed frame will
+   be and what it kept dropped, so that nothing of the capture allocates
+   or loads for the first time in the window; ``setup_s`` runs from
+   process start to the first timed frame;
 2. the window (``window.py``): frames while the host clock is before the
    deadline, and at least three; per-frame device events, no added sync;
    each frame's primary wavefront counted on the device (the samples it
@@ -19,8 +37,14 @@ mix (``traffic/<name>.json``, read by ``traffic.py``). The run:
 3. with ``--trace 1`` the configuration's traced frames under
    ``torch.profiler`` after the window (``devtrace.py``);
 4. the check (``check.py``): the program's state freed, what the armed
-   frame kept against the plain reference (``reference.py``,
-   ``ref_path.py``), and every frame's primary lanes against W x H x spp;
+   frame kept against the configuration's reference, and every frame's
+   primary lanes against W x H x spp. The reference's world is posed at
+   the armed frame's scene time, (frames rendered before it + 1) x ``dt``
+   (the Renderer advances its clock by ``dt`` before each frame), and the
+   check blends the frame into an average of the frames since the
+   accumulation last restarted, which the mix alone decides
+   (``Traffic.accumulated_before``): the program's own count is held to
+   it;
 5. the metrics: each a reader ``metrics/<name>.py`` found by the name in
    ``BENCHMARK.json`` (the cell's ``end_to_end`` metrics with ``--trace
    0``, its ``per_layer`` ones with ``--trace 1``), then one JSON line.
@@ -114,21 +138,47 @@ def metrics_of(man: dict, workload: str, kind: str) -> list:
     return out
 
 
-def reader(name: str):
-    """The ``read(ctx)`` of ``metrics/<name>.py``."""
-    path = os.path.join(HERE, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location("hrbench_metric_" + name.replace(".", "_"),
-                                                  path)
+def _load(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str):
+    """The ``read(ctx)`` of ``metrics/<name>.py``."""
+    return _load(os.path.join(HERE, "metrics", name + ".py"),
+                 "hrbench_metric_" + name.replace(".", "_")).read
+
+
+def _names(folder: str, prefix: str = "") -> list:
+    return sorted(f[:-3] for f in os.listdir(folder)
+                  if f.startswith(prefix) and f.endswith(".py"))
+
+
+def scene_kind(kind: str):
+    """The module ``scenes/<kind>.py``; ValueError naming the kinds there."""
+    kinds = _names(os.path.join(HERE, "scenes"))
+    if kind not in kinds:
+        raise ValueError(f"no scene kind '{kind}' (scenes/: {', '.join(kinds)})")
+    return _load(os.path.join(HERE, "scenes", kind + ".py"), "hrbench_scene_" + kind)
+
+
+def reference_of(name: str):
+    """The reference module ``<name>.py`` beside this one (a ``ref_*``
+    module that offers ``snapshot`` and ``World``); ValueError naming those
+    there."""
+    refs = _names(HERE, "ref_")
+    mod = importlib.import_module("hrbench." + name) if name in refs else None
+    if mod is None or not all(hasattr(mod, a) for a in ("snapshot", "World")):
+        raise ValueError(f"no reference '{name}' (hrbench/: {', '.join(refs)})")
+    return mod
 
 
 class Ctx:
     """What a metric reader reads: ``window`` (window.Window), ``setup_s``,
     and after a traced run ``trace`` (devtrace.DeviceTrace), ``calls`` (the
-    hand kernels' sizes in the traced frames), ``host_frames`` (the
-    program's host scopes of each window frame, ms), ``bvh_seconds``,
+    hand kernels' sizes in the traced frames), ``bvh_seconds``,
     ``peaks`` (roofline.peak of the card)."""
 
     def __init__(self, **kw):
@@ -139,23 +189,23 @@ class Ctx:
 # the run
 # ---------------------------------------------------------------------------
 
-def build(conf: dict, device, tmpdir: str, overrides: dict):
-    """(renderer, scene snapshot) for a configuration: the scene made
-    here, the renderer handed the configuration's settings."""
+def build(conf: dict, device, tmpdir: str, overrides: dict, maker, ref):
+    """(renderer, scene snapshot) for a configuration: the scene made by
+    its kind, the snapshot taken by its reference before the renderer sees
+    the scene, the renderer handed the configuration's settings."""
     import dataclasses
 
     from hobbyrenderer_tpu_torch.config import Config
     from hobbyrenderer_tpu_torch.renderer import Renderer
-    from hobbyrenderer_tpu_torch.scene.procedural import make_stress_scene
-
-    from hrbench import reference
-    sc = dict(conf["scene"], **{k: v for k, v in overrides.items() if k in ("grid", "lod_rich")})
-    scene = make_stress_scene(grid=int(sc["grid"]), seed=int(sc["seed"]),
-                              lod_rich=bool(sc.get("lod_rich", True)))
-    snap = reference.snapshot_scene(scene)
-    kw = dict(conf["renderer"], **{k: v for k, v in overrides.items()
-                                   if k in ("width", "height")})
-    cfg = Config(scene="stress", cache_dir=os.path.join(tmpdir, "renderer"), **kw)
+    scene, made = maker.make(conf["scene"], overrides, tmpdir)
+    both = sorted(set(made) & set(conf["renderer"]))
+    if both:
+        raise ValueError(f"the scene kind and the configuration's renderer both set "
+                         f"{', '.join(both)}")
+    snap = ref.snapshot(scene)
+    kw = dict(conf["renderer"], **made)
+    kw.update({k: v for k, v in overrides.items() if k in ("width", "height")})
+    cfg = Config(cache_dir=os.path.join(tmpdir, "renderer"), **kw)
     cfg = dataclasses.replace(cfg, settings=dataclasses.replace(cfg.settings,
                                                                 **conf["settings"]))
     r = Renderer(cfg, scene=scene, device=device)
@@ -256,7 +306,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
     import numpy as np
     import torch
 
-    from hrbench import check, devtrace, ref_path, roofline, traffic as traffic_mod
+    from hrbench import check, devtrace, roofline, traffic as traffic_mod
     from hrbench.capture import Capture
     start = process_start() if start is None else start
     overrides = overrides or {}
@@ -264,25 +314,27 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
     cell, entry = cell_of(man, workload)
     with open(os.path.join(root, entry["file"])) as f:
         conf = json.load(f)
-    traffic = traffic_mod.Traffic(traffic_mod.load(cell["traffic"]), seed)
+    maker = scene_kind(conf["scene"]["kind"])
+    ref = reference_of(conf.get("reference", "ref_path"))
+    traffic = traffic_mod.Traffic(traffic_mod.load(cell["traffic"], root), seed)
     dev = torch.device(device)
     check_frame = int(np.random.default_rng([seed, 1]).integers(CHECK_FRAMES))
     warm = int(conf["warmup_frames"])
     tmpdir = tempfile.mkdtemp(prefix="hrbench_")
     capture = Capture(seed, dev).install()
     try:
-        r, snap = build(conf, dev, tmpdir, overrides)
+        r, snap = build(conf, dev, tmpdir, overrides, maker, ref)
         set_pose(r, traffic, 0)
         for i in range(warm):
             if traffic.moves:
                 set_pose(r, traffic, i)
+            capture.armed = i == warm - 1
             r.render_frame(traffic.dt)
+        capture.armed = False
         r.synchronize()
+        capture.reset()
         setup_s = time.time() - start
-        from hobbyrenderer_tpu_torch.utils.timing import PROFILER
-        h0 = len(PROFILER.history)
         win = run_window(r, traffic, seconds, warm, capture, check_frame)
-        host_frames = PROFILER.history[h0:h0 + win.frames]
         w, h = r.config.render_width, r.config.render_height
         # the samples a frame walked: its primary wavefront's live lanes
         walked = [int(x) for x in torch.stack([capture.primary.get(i, torch.zeros(
@@ -305,14 +357,15 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
     t_check = time.perf_counter()
     spp = int(conf["renderer"].get("pt_spp", 1))
     numbers = {"primary_lane_shortfall": max(w * h * spp - x for x in walked)}
-    world = ref_path.World(snap, conf["settings"], dev)
+    armed = warm + check_frame          # frames rendered before the armed one
+    world = ref.World(snap, conf["settings"], dev, (armed + 1) * traffic.dt)
     numbers.update(check.compare_walks(capture.walks, world.tris, control=control))
-    pos, target = traffic.camera_pose(warm + check_frame)
+    pos, target = traffic.camera_pose(armed)
     fov = snap["fov_y"]
     camera = dict(pos=pos, target=target, fov_y=fov, width=w, height=h,
                   proj11=float(np.float32(1.0 / np.tan(0.5 * fov))),
-                  frame_index=warm + check_frame, frames_before=warm + check_frame)
-    numbers.update(check.compare_paths(world, capture.path, camera,
+                  frame_index=armed, frames_before=traffic.accumulated_before(armed))
+    numbers.update(check.compare_paths(ref, world, capture.path, camera,
                                        int(conf["settings"]["rr_start_bounce"]),
                                        control=control))
     correct, checks = check.judge(numbers)
@@ -321,8 +374,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
 
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     ctx = Ctx(window=win, setup_s=setup_s, trace=tr, calls=capture.calls,
-              host_frames=host_frames, bvh_seconds=bvh_seconds,
-              peaks=roofline.peak(kind))
+              bvh_seconds=bvh_seconds, peaks=roofline.peak(kind))
     metrics = {}
     for m in metrics_of(man, workload, "per_layer" if trace else "end_to_end"):
         value = reader(m["name"])(ctx)

@@ -1,5 +1,6 @@
 """Nothing the benchmark loads is jax, jaxlib, flax or the JAX package,
-by top-level name compared whole."""
+by top-level name compared whole: its modules, metric readers, scene kinds
+and the reference of every configuration."""
 
 import os
 import subprocess
@@ -10,7 +11,7 @@ from hrbench import run as hr
 ROOT = hr.ROOT
 
 _WALK = r"""
-import importlib, os, sys, pkgutil
+import importlib, json, os, sys, pkgutil
 import hrbench
 from hrbench import run as hr
 for m in pkgutil.iter_modules(hrbench.__path__):
@@ -19,6 +20,15 @@ for m in pkgutil.iter_modules(hrbench.__path__):
 for f in sorted(os.listdir(os.path.join(hr.HERE, "metrics"))):
     if f.endswith(".py"):
         hr.reader(f[:-3])
+# every scene kind, and the reference each configuration names
+for f in sorted(os.listdir(os.path.join(hr.HERE, "scenes"))):
+    if f.endswith(".py"):
+        hr.scene_kind(f[:-3])
+man = hr.load_manifest()
+for c in man["configs"]:
+    conf = json.load(open(os.path.join(hr.ROOT, c["file"])))
+    hr.scene_kind(conf["scene"]["kind"])
+    hr.reference_of(conf.get("reference", "ref_path"))
 # the port's modules that a run imports
 import hobbyrenderer_tpu_torch.config, hobbyrenderer_tpu_torch.renderer
 import hobbyrenderer_tpu_torch.ops.envmap, hobbyrenderer_tpu_torch.scene.procedural
